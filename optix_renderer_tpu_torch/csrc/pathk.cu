@@ -1,0 +1,547 @@
+// Regenerating path-trace kernel for Hopper (sm_90a), one thread per pixel.
+//
+// Replaces the small-scene (<= 64 triangles) branch of the TPU kernel
+// optix_renderer_tpu/ops/pallas/pathk.py: pathk_trace -> _pathk_kernel.
+// The TPU kernel works on [8, 512] pixel blocks with SMEM scalar packs and
+// select-loops because Mosaic cannot gather per lane; here each thread owns
+// one pixel and runs that pixel's loop of regenerating bounces with the
+// carried state of the TPU kernel's `body`, reading the scene tables
+// (< 25 KB: triangles, emissive triangles, emitters, spheres, camera pack)
+// through ordinary loads that all threads of a warp share.
+//
+// What bounds it on the card: FP32 ALU work (Moller-Trumbore over every
+// triangle twice per bounce, BSDF and NEE math) and warp divergence between
+// pixels whose paths have different lengths; it does no tensor-core work
+// and moves almost no memory (16 floats out per pixel). Regeneration keeps
+// every thread busy until its own n_spp samples are done, so a warp idles
+// only in its tail. This first version is the simple, right one. It is
+// built without FMA contraction (ops/cuda/_build.py), so its rows equal
+// the plain torch version's bit for bit.
+//
+// Contract (same as ops/cuda/pathk.py: pathk_trace_ref):
+//   out [16, n_pix] float32: rows 0:3 sum L, 3 samples done, 4:7 sum albedo,
+//   7:10 sum normal, 10 loop iterations of this pixel, 11:16 zero.
+// A pixel leaves its loop only when it has no active path and no pending
+// shadow ray, or after n_spp * max_depth + 2 iterations. pcg32 draws follow
+// the TPU kernel's order: seed tea(pix, (spp0 + k) ^ seed), jitter 2 +
+// aperture 2, RR 1, NEE pick 1 + 3 (MIS only), BSDF 2.
+#include "mega.cuh"
+
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+#endif
+
+namespace pk {
+
+struct Tables {
+  const float* sf;   // [40] camera pack
+  const float* em;   // [n_emitters, 24]
+  const float* env;  // [4] constant env radiance + presence flag
+  const float* sph;  // [n_sph_rows, 32]
+  const float* tri;  // [t_cnt, 48]
+  const float* et;   // [te_cnt, 24] emissive triangles
+  int n_sph_rows, t_cnt, te_cnt, n_emitters;
+  float n_lights;
+  int n_pix, width, n_spp, max_depth, rfilter, use_dof;
+  uint32_t spp0, seed;
+};
+
+struct Ray {
+  V3 o, d;
+  float mint, maxt;
+};
+
+// filter importance sampling: (u1, u2) -> jitter distributed as the filter
+HD void fis_jitter2(float u1, float u2, int rfilter, float& jx, float& jy) {
+  if (rfilter == 0) {  // box
+    jx = u1;
+    jy = u2;
+  } else if (rfilter == 1) {  // tent: inverse CDF of (1 - |x|)
+    float u[2] = {u1, u2}, j[2];
+    for (int k = 0; k < 2; ++k) {
+      float lo = sqrtf(fmaxf(2.0f * u[k], 0.0f)) - 1.0f;
+      float hi = 1.0f - sqrtf(fmaxf(2.0f - 2.0f * u[k], 0.0f));
+      j[k] = (u[k] < 0.5f ? lo : hi) + 0.5f;
+    }
+    jx = j[0];
+    jy = j[1];
+  } else {  // gaussian: Box-Muller at sigma 0.5, clamped to radius 2
+    float r = 0.5f * sqrtf(-2.0f * logf(fmaxf(1.0f - u1, 1e-12f)));
+    float th = TWO_PI * u2;
+    jx = clampf(r * cosf(th), -2.0f, 2.0f) + 0.5f;
+    jy = clampf(r * sinf(th), -2.0f, 2.0f) + 0.5f;
+  }
+}
+
+// seed the pixel's stream for sample k and make its camera ray
+HD Ray camera_ray(const Tables& T, uint32_t pix, float px, float py, uint32_t k, Pcg32& st) {
+  st = pcg32_seed((uint64_t)tea4(pix, (T.spp0 + k) ^ T.seed), (uint64_t)pix);
+  const float* sf = T.sf;
+  float uj1 = draw1(st), uj2 = draw1(st);
+  float jx, jy;
+  fis_jitter2(uj1, uj2, T.rfilter, jx, jy);
+  float a1 = draw1(st), a2 = draw1(st);
+  float x = (px + jx) * sf[36];
+  float y = (py + jy) * sf[37];
+  float nx = sf[0] * x + sf[1] * y + sf[3];
+  float ny = sf[4] * x + sf[5] * y + sf[7];
+  float nz = sf[8] * x + sf[9] * y + sf[11];
+  float wq = sf[12] * x + sf[13] * y + sf[15];
+  float inv_w = 1.0f / wq;
+  V3 dl = vnormalize(V3{nx * inv_w, ny * inv_w, nz * inv_w});
+  V3 o_cam{0.0f, 0.0f, 0.0f}, d_cam = dl;
+  if (T.use_dof) {
+    float r = sf[32] * sqrtf(fmaxf(a1, 0.0f));
+    float th = TWO_PI * a2;
+    V3 p_lens{r * cosf(th), r * sinf(th), 0.0f};
+    float ft = sf[33] / dl.z;
+    d_cam = vnormalize(vsub(vscale(dl, ft), p_lens));
+    o_cam = p_lens;
+  }
+  const float* tm = sf + 16;
+  Ray ray;
+  ray.o = V3{tm[0] * o_cam.x + tm[1] * o_cam.y + tm[2] * o_cam.z + tm[3],
+             tm[4] * o_cam.x + tm[5] * o_cam.y + tm[6] * o_cam.z + tm[7],
+             tm[8] * o_cam.x + tm[9] * o_cam.y + tm[10] * o_cam.z + tm[11]};
+  ray.d = V3{tm[0] * d_cam.x + tm[1] * d_cam.y + tm[2] * d_cam.z,
+             tm[4] * d_cam.x + tm[5] * d_cam.y + tm[6] * d_cam.z,
+             tm[8] * d_cam.x + tm[9] * d_cam.y + tm[10] * d_cam.z};
+  float inv_z = 1.0f / dl.z;
+  ray.mint = sf[34] * inv_z;
+  ray.maxt = sf[35] * inv_z;
+  return ray;
+}
+
+// Moller-Trumbore (mesh.cpp:61-97); true and (u, v, t) when the test passes
+HD bool mt_hit(const float* tr, V3 o, V3 d, float& u, float& v, float& t) {
+  V3 v0 = load3(tr), e1 = load3(tr + 3), e2 = load3(tr + 6);
+  V3 pv{d.y * e2.z - d.z * e2.y, d.z * e2.x - d.x * e2.z, d.x * e2.y - d.y * e2.x};
+  float det = e1.x * pv.x + e1.y * pv.y + e1.z * pv.z;
+  bool det_ok = fabsf(det) > 1e-12f;
+  float inv = 1.0f / (det_ok ? det : 1e-12f);
+  V3 tv = vsub(o, v0);
+  u = (tv.x * pv.x + tv.y * pv.y + tv.z * pv.z) * inv;
+  V3 qv{tv.y * e1.z - tv.z * e1.y, tv.z * e1.x - tv.x * e1.z, tv.x * e1.y - tv.y * e1.x};
+  v = (d.x * qv.x + d.y * qv.y + d.z * qv.z) * inv;
+  t = (e2.x * qv.x + e2.y * qv.y + e2.z * qv.z) * inv;
+  return det_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f;
+}
+
+struct Nee {
+  V3 wi, value;
+  float pdf_sa, shadow_dist;
+};
+
+// NEE sample (path_mis.cpp:74-106 EMS side): emitter pick, emissive triangle
+// by its area CDF (dpdf sampleReuse), then area / point / spot / directional /
+// constant-env sampling. Draws pick 1 + 3.
+HD Nee nee_sample(const Tables& T, V3 p_hit, Pcg32& st) {
+  float u_pick = draw1(st);
+  float ua = draw1(st), ub = draw1(st);
+  draw1(st);  // third EMS uniform: drawn, unused (stream order)
+  int eid = 0;
+  for (int e = 0; e < T.n_emitters - 1; ++e) eid += T.em[e * ER_COLS + 12] <= u_pick ? 1 : 0;
+  const int ne = T.n_emitters;
+  float etype = row_at(T.em, ER_COLS, ne, eid, 0);
+  Nee r;
+
+  if (etype == (float)EM_AREA) {
+    const float* R = nullptr;
+    for (int k = 0; k < T.te_cnt; ++k) {
+      const float* row = T.et + k * ET_COLS;
+      if ((int)row[19] == eid && row[18] > ua) {
+        R = row;
+        break;
+      }
+    }
+    float z18[18] = {0.0f};
+    const float* g = R ? R : z18;
+    float cdf_hi = R ? R[18] : 0.0f, cdf_lo = R ? R[20] : 0.0f;
+    float ua_re = clampf((ua - cdf_lo) / fmaxf(cdf_hi - cdf_lo, 1e-12f), 0.0f,
+                         (float)(1.0 - 1e-7));
+    float su = sqrtf(fmaxf(ua_re, 0.0f));
+    float b1 = ub * su;
+    float b2 = 1.0f - (1.0f - su) - b1;
+    V3 p_surf = vadd(load3(g), vadd(vscale(load3(g + 3), b1), vscale(load3(g + 6), b2)));
+    V3 n_surf = vnormalize(vadd(load3(g + 9), vadd(vscale(load3(g + 12), b1),
+                                                   vscale(load3(g + 15), b2))));
+    V3 to_p = vsub(p_surf, p_hit);
+    float dist2 = fmaxf(vdot(to_p, to_p), 1e-20f);
+    float dist = sqrtf(dist2);
+    r.wi = vscale(to_p, 1.0f / dist);
+    float cos_em = vdot(n_surf, vneg(r.wi));
+    float area_tot = row_at(T.em, ER_COLS, ne, eid, 10);
+    float inv_area = 1.0f / fmaxf(area_tot, 1e-20f);
+    float pdf_area = inv_area * dist2 / fmaxf(fabsf(cos_em), 1e-12f);
+    bool ok = cos_em > 0.0f && pdf_area > EPS && R != nullptr;
+    float inv_pdf = ok ? 1.0f / fmaxf(pdf_area, 1e-12f) : 0.0f;
+    r.value = V3{row_at(T.em, ER_COLS, ne, eid, 1) * inv_pdf,
+                 row_at(T.em, ER_COLS, ne, eid, 2) * inv_pdf,
+                 row_at(T.em, ER_COLS, ne, eid, 3) * inv_pdf};
+    r.pdf_sa = ok ? pdf_area : 0.0f;
+    r.shadow_dist = dist - EPS;
+  } else if (etype == (float)EM_POINT || etype == (float)EM_SPOT) {
+    V3 to_l = vsub(V3{row_at(T.em, ER_COLS, ne, eid, 4), row_at(T.em, ER_COLS, ne, eid, 5),
+                      row_at(T.em, ER_COLS, ne, eid, 6)}, p_hit);
+    float d2pt = fmaxf(vdot(to_l, to_l), 1e-20f);
+    float dpt = sqrtf(d2pt);
+    r.wi = vscale(to_l, 1.0f / dpt);
+    if (etype == (float)EM_POINT) {
+      r.value = V3{row_at(T.em, ER_COLS, ne, eid, 1) / d2pt,
+                   row_at(T.em, ER_COLS, ne, eid, 2) / d2pt,
+                   row_at(T.em, ER_COLS, ne, eid, 3) / d2pt};
+    } else {  // spot (spotlight.cpp:54-74): cone intensity power/2pi, delta^4 ramp
+      float c_start = row_at(T.em, ER_COLS, ne, eid, 16);
+      float c_end = row_at(T.em, ER_COLS, ne, eid, 17);
+      float cos_theta = -(r.wi.x * row_at(T.em, ER_COLS, ne, eid, 13) +
+                          r.wi.y * row_at(T.em, ER_COLS, ne, eid, 14) +
+                          r.wi.z * row_at(T.em, ER_COLS, ne, eid, 15));
+      float delta = (cos_theta - c_end) / fmaxf(c_start - c_end, 1e-12f);
+      float r1 = clampf(delta, 0.0f, 1.0f), r2 = r1 * r1;
+      float falloff = cos_theta < c_end ? 0.0f : (cos_theta >= c_start ? 1.0f : r2 * r2);
+      float i_norm = falloff / (TWO_PI * fmaxf(1.0f - 0.5f * (c_end + c_start), 1e-12f) * d2pt);
+      r.value = V3{row_at(T.em, ER_COLS, ne, eid, 7) * i_norm,
+                   row_at(T.em, ER_COLS, ne, eid, 8) * i_norm,
+                   row_at(T.em, ER_COLS, ne, eid, 9) * i_norm};
+    }
+    r.pdf_sa = 1.0f;
+    r.shadow_dist = dpt - EPS;
+  } else if (etype == (float)EM_DIRECTIONAL) {
+    // directionalLight.cpp:90-136: uniform sphere cap around -direction
+    float cos_cap = cosf(row_at(T.em, ER_COLS, ne, eid, 18));
+    V3 dir_t = vnormalize(V3{row_at(T.em, ER_COLS, ne, eid, 13),
+                             row_at(T.em, ER_COLS, ne, eid, 14),
+                             row_at(T.em, ER_COLS, ne, eid, 15)});
+    V3 sD, tD;
+    onb(dir_t, sD, tD);
+    float zc = ua * (1.0f - cos_cap) + cos_cap;
+    float rc = safe_sqrt(1.0f - zc * zc);
+    float thc = TWO_PI * ub;
+    r.wi = vneg(to_world(sD, tD, dir_t, V3{rc * cosf(thc), rc * sinf(thc), zc}));
+    float pdf_dir = 1.0f / fmaxf(TWO_PI * (1.0f - cos_cap), 1e-12f);
+    float inv_pd = 1.0f / pdf_dir;
+    r.value = V3{row_at(T.em, ER_COLS, ne, eid, 1) * inv_pd,
+                 row_at(T.em, ER_COLS, ne, eid, 2) * inv_pd,
+                 row_at(T.em, ER_COLS, ne, eid, 3) * inv_pd};
+    r.pdf_sa = pdf_dir;
+    r.shadow_dist = BIG;
+  } else {  // constant envmap: uniform sphere, pdf 1/4pi
+    float z = 2.0f * ua - 1.0f;
+    float rr = safe_sqrt(1.0f - z * z);
+    float sig = TWO_PI * ub;
+    r.wi = V3{rr * cosf(sig), rr * sinf(sig), z};
+    r.value = V3{T.env[0] * FOUR_PI, T.env[1] * FOUR_PI, T.env[2] * FOUR_PI};
+    r.pdf_sa = (float)(1.0 / (4.0 * PI_D));
+    r.shadow_dist = BIG;
+  }
+  return r;
+}
+
+// triangle attributes -> BSDF params (columns of the triangle rows)
+HD Bsdf bsdf_from_row(const float* a) {
+  Bsdf P;
+  P.type = (int)a[21];
+  P.alpha = a[22];
+  P.int_ior = a[23];
+  P.ext_ior = a[24];
+  P.ks = a[25];
+  P.kd = load3(a + 26);
+  P.albedo = load3(a + 29);
+  for (int k = 0; k < 10; ++k) P.disney[k] = a[33 + k];
+  return P;
+}
+
+HD Bsdf bsdf_from_sphere(const float* s) {
+  Bsdf P;
+  P.type = (int)s[4];
+  P.alpha = s[5];
+  P.int_ior = s[6];
+  P.ext_ior = s[7];
+  P.ks = s[8];
+  P.kd = load3(s + 9);
+  P.albedo = load3(s + 12);
+  for (int k = 0; k < 10; ++k) P.disney[k] = s[16 + k];
+  return P;
+}
+
+// The whole per-pixel loop; writes the pixel's 16 output values to res.
+template <bool MIS>
+HD void trace_pixel(const Tables& T, uint32_t pix, float res[16]) {
+  const float px = (float)(pix % (uint32_t)T.width);
+  const float py = (float)(pix / (uint32_t)T.width);
+  const int max_iters = T.n_spp * T.max_depth + 2;
+  const bool has_env = T.env[3] > 0.0f;
+  const float pdf_env_dir = has_env ? (float)(1.0 / (4.0 * PI_D) / (double)T.n_lights) : 0.0f;
+
+  Pcg32 st;
+  Ray ray = camera_ray(T, pix, px, py, 0u, st);
+  float depth = 0.0f;
+  bool active = true, prev_disc = false, sh_pend = false;
+  int started = 1;
+  V3 thr{1.0f, 1.0f, 1.0f};
+  float pdf_prev = 0.0f;
+  V3 sh_o{0.0f, 0.0f, 0.0f}, sh_d{0.0f, 0.0f, 1.0f}, sh_c{0.0f, 0.0f, 0.0f};
+  float sh_dist = -1.0f;
+  V3 aL{0.0f, 0.0f, 0.0f}, aA{0.0f, 0.0f, 0.0f}, aN{0.0f, 0.0f, 0.0f};
+  float n_done = 0.0f;
+  int it = 0;
+
+  while (it < max_iters && (active || sh_pend)) {
+    ++it;
+    const bool was = active;
+    const bool first = depth < 0.5f;
+
+    // ---- 1. fused sweep: closest hit (current ray) + any hit (shadow ray)
+    float t_tri = ray.maxt, u = 0.0f, v = 0.0f;
+    int best_j = -1;
+    bool occ = false;
+    for (int j = 0; j < T.t_cnt; ++j) {
+      const float* tr = T.tri + j * TR_COLS;
+      float uu, vv, tt;
+      if (mt_hit(tr, ray.o, ray.d, uu, vv, tt) && tt >= ray.mint && tt < t_tri) {
+        t_tri = tt;
+        u = uu;
+        v = vv;
+        best_j = j;
+      }
+      if (sh_pend && !occ && mt_hit(tr, sh_o, sh_d, uu, vv, tt) && tt >= EPS && tt < sh_dist)
+        occ = true;
+    }
+    const bool tri_valid = best_j >= 0;
+    if (sh_pend && !occ) {
+      int s_sid;
+      sphere_hit(T.sph, T.n_sph_rows, sh_o, sh_d, EPS, sh_dist, s_sid);
+      occ = s_sid >= 0;
+    }
+
+    // ---- 2. resolve the pending NEE shadow ray from the last iteration
+    if (sh_pend && !occ) aL = vadd(aL, sh_c);
+    sh_pend = false;
+
+    // ---- 3. a sphere hit must beat the best triangle
+    int sid;
+    float t_sph = sphere_hit(T.sph, T.n_sph_rows, ray.o, ray.d, ray.mint, t_tri, sid);
+    const bool sphere_wins = sid >= 0;
+    const bool valid = tri_valid || sphere_wins;
+    const float t_best = sphere_wins ? t_sph : t_tri;
+    V3 p_hit = vadd(ray.o, vscale(ray.d, valid ? t_best : 1.0f));
+    Bsdf P;
+    V3 ns;
+    int em_id = -1;
+    if (sphere_wins) {
+      const float* s = T.sph + sid * SPH_COLS;
+      P = bsdf_from_sphere(s);
+      float inv_r = 1.0f / fmaxf(s[3], 1e-12f);
+      ns = V3{(p_hit.x - s[0]) * inv_r, (p_hit.y - s[1]) * inv_r, (p_hit.z - s[2]) * inv_r};
+    } else if (tri_valid) {
+      const float* a = T.tri + best_j * TR_COLS;
+      P = bsdf_from_row(a);
+      ns = vnormalize(V3{a[12] + u * a[15] + v * a[18], a[13] + u * a[16] + v * a[19],
+                         a[14] + u * a[17] + v * a[20]});
+      em_id = (int)a[32];
+    }
+
+    // ---- 4. miss -> constant envmap. The NEE side samples a constant
+    // envmap uniformly over the sphere, so this MIS weight uses pdf
+    // 1/4pi/n_lights (the JAX package's XLA path uses its image CDF
+    // instead; the two agree only in expectation).
+    if (!valid) {
+      if (active) {
+        float w_env = 1.0f;
+        if (MIS && !(first || prev_disc)) {
+          float denom_env = pdf_prev + pdf_env_dir;
+          w_env = denom_env > EPS ? pdf_prev / fmaxf(denom_env, 1e-20f) : 1.0f;
+        }
+        aL = vadd(aL, V3{w_env * thr.x * T.env[0], w_env * thr.y * T.env[1],
+                         w_env * thr.z * T.env[2]});
+      }
+      active = false;
+    } else {
+      // ---- 5. first-hit AOVs
+      if (first) {
+        aA = vadd(aA, P.albedo);
+        aN = vadd(aN, ns);
+      }
+      V3 sfr, tfr;
+      onb(ns, sfr, tfr);
+
+      // ---- 6. emitter hit (MATS side)
+      const int ne = T.n_emitters;
+      if (active && em_id >= 0 && vdot(ns, vneg(ray.d)) >= 0.0f) {
+        float w_mats = 1.0f;
+        if (MIS && !(first || prev_disc)) {
+          float cos_e = vdot(ns, vneg(vnormalize(ray.d)));
+          V3 to_hit = vsub(p_hit, ray.o);
+          float dist2 = vdot(to_hit, to_hit);
+          float area_tot = row_at(T.em, ER_COLS, ne, em_id, 10);
+          float pdf_here = cos_e > 0.0f ? (1.0f / fmaxf(area_tot, 1e-20f)) * dist2 /
+                                              fmaxf(fabsf(cos_e), 1e-12f) / T.n_lights
+                                        : 0.0f;
+          float denom = pdf_prev + pdf_here;
+          w_mats = denom > EPS ? pdf_prev / fmaxf(denom, 1e-20f) : 1.0f;
+        }
+        aL = vadd(aL, V3{w_mats * thr.x * row_at(T.em, ER_COLS, ne, em_id, 1),
+                         w_mats * thr.y * row_at(T.em, ER_COLS, ne, em_id, 2),
+                         w_mats * thr.z * row_at(T.em, ER_COLS, ne, em_id, 3)});
+      }
+
+      // ---- 7. Russian roulette (path_mis.cpp:58-71 / raygen.cpp:119-127)
+      float u_rr = draw1(st);
+      float tmax_c = fmaxf(thr.x, fmaxf(thr.y, thr.z));
+      if (MIS) {
+        float succ = clampf(tmax_c, EPS, 0.99f);
+        if (active) {
+          bool die = u_rr > succ;
+          thr = vscale(thr, 1.0f / succ);
+          active = !die;
+        }
+      } else {
+        float succ = fminf(tmax_c, 0.99f);
+        if (active && depth >= 2.5f) {
+          bool die = u_rr > succ;
+          thr = vscale(thr, 1.0f / fmaxf(succ, 1e-12f));
+          active = !die;
+        }
+      }
+
+      V3 wi_l = to_local(sfr, tfr, ns, vneg(vnormalize(ray.d)));
+      V3 bw;
+      float bpdf;
+      bool bdisc;
+      V3 wo_l;
+      if (MIS) {
+        // ---- 8. EMS: sample NEE, queue the shadow ray for the next sweep
+        Nee nr = nee_sample(T, p_hit, st);
+        bool cand = active && (fabsf(nr.value.x) > EPS || fabsf(nr.value.y) > EPS ||
+                               fabsf(nr.value.z) > EPS);
+        V3 contrib{0.0f, 0.0f, 0.0f};
+        float w_ems = 0.0f;
+        if (cand) {
+          V3 wi_light_l = to_local(sfr, tfr, ns, nr.wi);
+          V3 f_l = bsdf_eval(P, wi_l, wi_light_l);
+          float cos_l = vdot(nr.wi, ns);
+          float pdf_mat_at = bsdf_pdf(P, wi_l, wi_light_l);
+          float pdf_ems = nr.pdf_sa / T.n_lights;
+          contrib = V3{nr.value.x * cos_l * f_l.x * T.n_lights,
+                       nr.value.y * cos_l * f_l.y * T.n_lights,
+                       nr.value.z * cos_l * f_l.z * T.n_lights};
+          w_ems = pdf_ems + pdf_mat_at > EPS ? pdf_ems / fmaxf(pdf_ems + pdf_mat_at, 1e-20f)
+                                             : 0.0f;
+        }
+        // ---- 9. MATS sample
+        float um1 = draw1(st), um2 = draw1(st);
+        wo_l = bsdf_sample(P, wi_l, um1, um2, bw, bpdf, bdisc);
+        float amask = (cand && !bdisc) ? w_ems : 0.0f;
+        sh_pend = amask * contrib.x != 0.0f || amask * contrib.y != 0.0f ||
+                  amask * contrib.z != 0.0f;
+        sh_c = V3{amask * thr.x * contrib.x, amask * thr.y * contrib.y,
+                  amask * thr.z * contrib.z};
+        sh_o = p_hit;
+        sh_d = nr.wi;
+        sh_dist = nr.shadow_dist;
+        pdf_prev = bpdf;
+        prev_disc = bdisc;
+      } else {
+        float um1 = draw1(st), um2 = draw1(st);
+        wo_l = bsdf_sample(P, wi_l, um1, um2, bw, bpdf, bdisc);
+      }
+      if (active) {
+        thr = V3{thr.x * bw.x, thr.y * bw.y, thr.z * bw.z};
+        active = fabsf(thr.x) > 1e-12f || fabsf(thr.y) > 1e-12f || fabsf(thr.z) > 1e-12f;
+      }
+      if (active) {
+        ray.o = p_hit;
+        ray.d = to_world(sfr, tfr, ns, wo_l);
+        ray.mint = EPS;
+        ray.maxt = BIG;
+      }
+    }
+    depth += 1.0f;
+
+    // ---- 10. termination + regeneration
+    const bool end = was && (!active || depth > (float)T.max_depth - 0.5f);
+    if (end) {
+      n_done += 1.0f;
+      if (started < T.n_spp) {
+        ray = camera_ray(T, pix, px, py, (uint32_t)started, st);
+        ++started;
+        depth = 0.0f;
+        thr = V3{1.0f, 1.0f, 1.0f};
+        pdf_prev = 0.0f;
+        prev_disc = false;
+        active = true;
+      } else {
+        active = false;
+      }
+    }
+  }
+  res[0] = aL.x;
+  res[1] = aL.y;
+  res[2] = aL.z;
+  res[3] = n_done;
+  res[4] = aA.x;
+  res[5] = aA.y;
+  res[6] = aA.z;
+  res[7] = aN.x;
+  res[8] = aN.y;
+  res[9] = aN.z;
+  res[10] = (float)it;
+  for (int r = 11; r < 16; ++r) res[r] = 0.0f;
+}
+
+#ifdef __CUDACC__
+template <bool MIS>
+__global__ void __launch_bounds__(128) pathk_kernel(Tables T, float* __restrict__ out) {
+  const uint32_t pix = blockIdx.x * blockDim.x + threadIdx.x;
+  if (pix >= (uint32_t)T.n_pix) return;
+  float res[16];
+  trace_pixel<MIS>(T, pix, res);
+  for (int r = 0; r < 16; ++r) out[(size_t)r * T.n_pix + pix] = res[r];
+}
+#endif
+
+}  // namespace pk
+
+#ifdef __CUDACC__
+extern "C" int pathk_trace_launch(float* out, const float* sf, const float* em,
+                                  const float* env, const float* sph, int n_sph_rows,
+                                  const float* tri, int t_cnt, const float* et, int te_cnt,
+                                  int n_pix, int width, int spp0, int seed, int n_spp,
+                                  int max_depth, int n_emitters, int n_lights, int mis,
+                                  int rfilter, int use_dof, void* stream) {
+  pk::Tables T;
+  T.sf = sf;
+  T.em = em;
+  T.env = env;
+  T.sph = sph;
+  T.tri = tri;
+  T.et = et;
+  T.n_sph_rows = n_sph_rows;
+  T.t_cnt = t_cnt;
+  T.te_cnt = te_cnt;
+  T.n_emitters = n_emitters;
+  T.n_lights = (float)n_lights;
+  T.n_pix = n_pix;
+  T.width = width;
+  T.n_spp = n_spp;
+  T.max_depth = max_depth;
+  T.rfilter = rfilter;
+  T.use_dof = use_dof;
+  T.spp0 = (uint32_t)spp0;
+  T.seed = (uint32_t)seed;
+  const int threads = 128;
+  const int blocks = (n_pix + threads - 1) / threads;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n_pix > 0) {
+    if (mis)
+      pk::pathk_kernel<true><<<blocks, threads, 0, s>>>(T, out);
+    else
+      pk::pathk_kernel<false><<<blocks, threads, 0, s>>>(T, out);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* pathk_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+#endif

@@ -1,0 +1,181 @@
+"""Image I/O: OpenEXR and PNG writers with no image library, and the linear → sRGB transfer.
+
+Counterpart of `optix_renderer_tpu/utils/imageio.py` (the reference
+`Bitmap`, bitmap.cpp): EXR for HDR render output, PNG for LDR. The EXR codec
+is the JAX package's pure-numpy OpenEXR 2 scanline codec (uncompressed FLOAT
+channels). PNG is written with `zlib` + `struct` instead of PIL, so the
+package needs no image library.
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+from pathlib import Path
+
+import numpy as np
+
+_EXR_MAGIC = 20000630
+
+
+def _attr(name: str, type_: str, data: bytes) -> bytes:
+    return (
+        name.encode() + b"\x00" + type_.encode() + b"\x00"
+        + struct.pack("<i", len(data)) + data
+    )
+
+
+def _chlist(names) -> bytes:
+    out = b""
+    for n in sorted(names):
+        # name, pixel type (2=FLOAT), pLinear, reserved[3], xSampling, ySampling
+        out += n.encode() + b"\x00" + struct.pack("<iBBBBii", 2, 0, 0, 0, 0, 1, 1)
+    return out + b"\x00"
+
+
+def write_exr(path: str | Path, image: np.ndarray) -> None:
+    """Write [h,w,3] (RGB) or [h,w,4] (RGBA) float32 as uncompressed EXR."""
+    img = np.asarray(image, np.float32)
+    if img.ndim != 3 or img.shape[2] not in (3, 4):
+        raise ValueError(f"expected [h,w,3|4], got {img.shape}")
+    h, w, c = img.shape
+    names = ["R", "G", "B"] + (["A"] if c == 4 else [])
+    chan = {"R": img[..., 0], "G": img[..., 1], "B": img[..., 2]}
+    if c == 4:
+        chan["A"] = img[..., 3]
+
+    header = b""
+    header += _attr("channels", "chlist", _chlist(names))
+    header += _attr("compression", "compression", b"\x00")  # none
+    box = struct.pack("<4i", 0, 0, w - 1, h - 1)
+    header += _attr("dataWindow", "box2i", box)
+    header += _attr("displayWindow", "box2i", box)
+    header += _attr("lineOrder", "lineOrder", b"\x00")
+    header += _attr("pixelAspectRatio", "float", struct.pack("<f", 1.0))
+    header += _attr("screenWindowCenter", "v2f", struct.pack("<2f", 0, 0))
+    header += _attr("screenWindowWidth", "float", struct.pack("<f", 1.0))
+    header += b"\x00"
+
+    preamble = struct.pack("<ii", _EXR_MAGIC, 2) + header
+    offset0 = len(preamble) + 8 * h
+    line_bytes = 8 + len(names) * w * 4
+    offsets = struct.pack("<%dQ" % h, *[offset0 + y * line_bytes for y in range(h)])
+
+    body = bytearray()
+    for y in range(h):
+        body += struct.pack("<ii", y, len(names) * w * 4)
+        for n in sorted(names):
+            body += chan[n][y].astype("<f4").tobytes()
+
+    with open(path, "wb") as f:
+        f.write(preamble)
+        f.write(offsets)
+        f.write(body)
+
+
+def _read_exr_header(buf: bytes):
+    magic, version = struct.unpack_from("<ii", buf, 0)
+    if magic != _EXR_MAGIC:
+        raise ValueError("not an EXR file")
+    pos = 8
+    attrs = {}
+    while buf[pos] != 0:
+        end = buf.index(b"\x00", pos)
+        name = buf[pos:end].decode()
+        pos = end + 1
+        end = buf.index(b"\x00", pos)
+        type_ = buf[pos:end].decode()
+        pos = end + 1
+        (size,) = struct.unpack_from("<i", buf, pos)
+        pos += 4
+        attrs[name] = (type_, buf[pos : pos + size])
+        pos += size
+    return attrs, pos + 1
+
+
+def read_exr(path: str | Path) -> np.ndarray:
+    """Read an EXR written by `write_exr` (or any uncompressed/zip FLOAT
+    scanline EXR with R,G,B[,A] channels). Returns [h,w,3|4] float32."""
+    buf = Path(path).read_bytes()
+    attrs, pos = _read_exr_header(buf)
+    x0, y0, x1, y1 = struct.unpack("<4i", attrs["dataWindow"][1])
+    w, h = x1 - x0 + 1, y1 - y0 + 1
+    compression = attrs["compression"][1][0]
+
+    # parse channel list
+    chdata = attrs["channels"][1]
+    names = []
+    cpos = 0
+    while chdata[cpos] != 0:
+        end = chdata.index(b"\x00", cpos)
+        names.append(chdata[cpos:end].decode())
+        cpos = end + 1 + 16
+    names_sorted = sorted(names)
+
+    n_lines_per_block = {0: 1, 1: 1, 2: 1, 3: 16}.get(compression)
+    if n_lines_per_block is None:
+        raise ValueError(f"unsupported EXR compression {compression}")
+    n_blocks = (h + n_lines_per_block - 1) // n_lines_per_block
+    offsets = struct.unpack_from("<%dQ" % n_blocks, buf, pos)
+
+    out = {n: np.zeros((h, w), np.float32) for n in names_sorted}
+    for off in offsets:
+        y, size = struct.unpack_from("<ii", buf, off)
+        data = buf[off + 8 : off + 8 + size]
+        nlines = min(n_lines_per_block, h - (y - y0))
+        raw_size = nlines * len(names_sorted) * w * 4
+        if compression in (2, 3) and size != raw_size:
+            data = zlib.decompress(data)
+            d = np.frombuffer(data, np.uint8).copy()
+            # EXR zip predictor: delta decode then de-interleave
+            d[1:] = (np.cumsum(d.astype(np.int64)) % 256)[1:].astype(np.uint8)
+            half = (len(d) + 1) // 2
+            interleaved = np.empty(len(d), np.uint8)
+            interleaved[0::2] = d[:half]
+            interleaved[1::2] = d[half : half + len(d) - half]
+            data = interleaved.tobytes()
+        arr = np.frombuffer(data, "<f4").reshape(nlines, len(names_sorted), w)
+        for li in range(nlines):
+            for ci, n in enumerate(names_sorted):
+                out[n][y - y0 + li] = arr[li, ci]
+
+    chans = [out[n] for n in ["R", "G", "B"] if n in out]
+    if "A" in out:
+        chans.append(out["A"])
+    return np.stack(chans, axis=-1)
+
+
+def linear_to_srgb(img: np.ndarray) -> np.ndarray:
+    img = np.asarray(img, np.float32)
+    return np.where(
+        img <= 0.0031308,
+        12.92 * img,
+        1.055 * np.maximum(img, 1e-12) ** (1.0 / 2.4) - 0.055,
+    )
+
+
+def _png_chunk(kind: bytes, data: bytes) -> bytes:
+    crc = zlib.crc32(kind + data) & 0xFFFFFFFF
+    return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", crc)
+
+
+def encode_png(image: np.ndarray, tonemap: bool = True) -> bytes:
+    """[h,w,3] linear float32 → 8-bit RGB PNG bytes (sRGB, like hdrToLdr.cpp:22-40)."""
+    img = np.asarray(image, np.float32)
+    if img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"expected [h,w,3], got {img.shape}")
+    if tonemap:
+        img = linear_to_srgb(img)
+    img = np.clip(img * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    h, w, _ = img.shape
+    # one filter byte (0 = none) before each scanline
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * 3)], axis=1)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)  # 8-bit truecolour
+    return (b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", ihdr)
+            + _png_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + _png_chunk(b"IEND", b""))
+
+
+def write_png(path: str | Path, image: np.ndarray, tonemap: bool = True) -> None:
+    """Write [h,w,3] linear float32 → PNG."""
+    Path(path).write_bytes(encode_png(image, tonemap))
