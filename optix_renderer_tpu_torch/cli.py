@@ -75,7 +75,7 @@ def main(argv=None) -> int:
     pr.add_argument("--integrator", help="override integrator (path_mis / path_mats)")
     pr.add_argument("--depth", type=int, help="max path depth")
     pr.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                    help="cuda launches the CUDA kernel; cpu runs its plain torch version")
+                    help="cuda launches the CUDA kernels; cpu runs their plain torch versions")
     pr.add_argument("--preview-every", type=int, default=0, metavar="K",
                     help="write a progressive preview PNG every K samples")
     pr.add_argument("--checkpoint", metavar="PATH", help="accumulator snapshot path")

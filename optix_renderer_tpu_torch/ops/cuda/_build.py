@@ -1,7 +1,8 @@
 """Build the package's CUDA sources into a shared library and load it.
 
 The kernels in `csrc/` have a plain C interface. At first use, `load()`
-compiles them with `nvcc` for Hopper (`sm_90a`) into
+compiles each `.cu` file with its own `nvcc`, all started together, and
+links the objects for Hopper (`sm_90a`) into one library,
 `optix_renderer_tpu_torch/_build/libpathk_<hash>.so`, where the hash covers
 the sources and the flags, so an edited source is rebuilt and an unchanged
 one is reused. The library is loaded with `ctypes`; no PyTorch headers are
@@ -21,7 +22,8 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("mega.cuh", "pathk.cu")
+SOURCES = ("mega.cuh", "pathk.cu", "isect.cu")
+UNITS = tuple(name for name in SOURCES if name.endswith(".cu"))
 # no --use_fast_math: the samplers go through logf/sinf/cosf and must keep
 # full-precision results to track the plain version per pixel.
 # -fmad=false: no FMA contraction, so every product and sum rounds as in the
@@ -29,7 +31,7 @@ SOURCES = ("mega.cuh", "pathk.cu")
 # contraction the kernel is ~10 % faster on an H100, but a camera ray that
 # grazes a silhouette can take its first hit on another surface.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None  # the loaded library, once per process
 last_build = {}  # {"path", "seconds", "ptxas"} of the build or load in this process
@@ -57,12 +59,27 @@ def build() -> Path:
     ptxas = ""
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tag = f"{out.stem}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{Path(u).stem}.{tag}.o" for u in UNITS]
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / u)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for u, obj in zip(UNITS, objs)]
+        failed = []
+        for u, p in zip(UNITS, procs):
+            so, se = p.communicate()
+            ptxas += f"[{u}]\n{se}"
+            if p.returncode != 0:
+                failed.append(f"{u} ({p.returncode}):\n{so}\n{se}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / "pathk.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        proc = subprocess.run([_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                               "-o", str(tmp), *map(str, objs)], capture_output=True, text=True)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-        ptxas = proc.stderr
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n"
+                               f"{proc.stderr}")
         os.replace(tmp, out)  # atomic: concurrent builders never load a partial file
     last_build.update(path=str(out), seconds=time.time() - t0, ptxas=ptxas)
     return out
@@ -84,6 +101,20 @@ def load() -> ctypes.CDLL:
             vp,  # stream
         ]
         lib.pathk_trace_launch.restype = i
+        lib.isect_bvh_launch.argtypes = [
+            vp, i, vp,  # packed, n_nodes, leaf
+            vp, vp, vp, vp, i, i,  # o, d, mint, cutoff, n, any_hit
+            vp, vp, vp, vp, vp,  # out id, t, u, v, visits (or null)
+            vp,  # stream
+        ]
+        lib.isect_bvh_launch.restype = i
+        lib.isect_brute_launch.argtypes = [
+            vp, i,  # tri [t_cnt, 9], t_cnt
+            vp, vp, vp, vp, i,  # o, d, mint, cutoff, n
+            vp, vp, vp, vp,  # out id, t, u, v
+            vp,  # stream
+        ]
+        lib.isect_brute_launch.restype = i
         lib.pathk_error_string.argtypes = [i]
         lib.pathk_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -1,12 +1,13 @@
 """Scene compiler without JAX: SceneNode tree → `SceneData` + `RenderConfig`.
 
 The numpy counterpart of `optix_renderer_tpu/scene/build.py` for what the
-regenerating path kernel renders: OBJ meshes and spheres, the five BSDFs
+port renders: OBJ meshes and spheres, the five BSDFs
 with constant textures, point / spot / area (mesh) / directional emitters
 and a constant environment map. It bakes toWorld into world-space geometry,
 builds the emitter-pick distribution (scene.cpp:179-184) and per-area-light
 triangle CDFs (mesh.cpp:15-46) exactly as the JAX builder does, so both
-produce the same kernel tables. Everything else raises `SceneBuildError`
+produce the same kernel tables, and from 257 triangles on the LBVH tables
+of the general path (`ops/bvh.py`). Everything else raises `SceneBuildError`
 naming the ROADMAP item that will port it.
 """
 
@@ -19,10 +20,12 @@ import numpy as np
 import torch
 
 from optix_renderer_tpu_torch.core import transform as tf
+from optix_renderer_tpu_torch.ops import bvh as bvh_mod
 from optix_renderer_tpu_torch.scene import obj as obj_mod
 from optix_renderer_tpu_torch.scene.data import (
     Bsdfs,
     BsdfType,
+    Bvh,
     Camera,
     DiscretePDF,
     EmitterGeom,
@@ -58,6 +61,19 @@ def _dpdf(weights) -> DiscretePDF:
     inv = np.float32(1.0) / max(total, np.float32(1e-38)) if total > 0 else np.float32(0)
     pmf = w * inv
     return DiscretePDF(pmf=_t(pmf), cdf=_t(np.cumsum(pmf, dtype=np.float32)))
+
+
+def _uv_tangents(v0, v1, v2, uv0, uv1, uv2) -> np.ndarray:
+    """[T,4] UV-aligned tangent dp/du per triangle (mesh.cpp:176-185) and the
+    UV handedness sign; zero where the UV chart is degenerate (build.py:620-638
+    of the JAX package)."""
+    duv1 = uv1 - uv0
+    duv2 = uv2 - uv0
+    uv_det = duv1[:, 0] * duv2[:, 1] - duv2[:, 0] * duv1[:, 1]
+    safe_det = np.where(np.abs(uv_det) > 1e-12, uv_det, 1.0)
+    tang = ((v1 - v0) * duv2[:, 1:2] - (v2 - v0) * duv1[:, 1:2]) / safe_det[:, None]
+    tang = np.where(np.abs(uv_det)[:, None] > 1e-12, tang, 0.0)
+    return np.concatenate([tang, np.sign(safe_det)[:, None]], axis=1).astype(np.float32)
 
 
 class _Builder:
@@ -286,12 +302,17 @@ class _Builder:
             sph_center = np.zeros((0, 3), np.float32)
             sph_radius = np.zeros(0, np.float32)
             sph_shape = np.zeros(0, np.int32)
+        bvh = None
+        if len(tri_v0) >= bvh_mod.MIN_TRIS_FOR_BVH:
+            packed, leaf = bvh_mod.build_bvh_tables(tri_v0, tri_v1, tri_v2)
+            bvh = Bvh(packed=_t(packed), leaf=_t(leaf))
         geometry = Geometry(
             tri_v0=_t(tri_v0), tri_e1=_t(tri_v1 - tri_v0), tri_e2=_t(tri_v2 - tri_v0),
             tri_n0=_t(tri_n0), tri_n1=_t(tri_n1), tri_n2=_t(tri_n2),
             tri_uv0=_t(tri_uv0), tri_uv1=_t(tri_uv1), tri_uv2=_t(tri_uv2),
+            tri_tang=_t(_uv_tangents(tri_v0, tri_v1, tri_v2, tri_uv0, tri_uv1, tri_uv2)),
             tri_shape=_t(tri_shape, torch.int32), sph_center=_t(sph_center),
-            sph_radius=_t(sph_radius), sph_shape=_t(sph_shape, torch.int32),
+            sph_radius=_t(sph_radius), sph_shape=_t(sph_shape, torch.int32), bvh=bvh,
         )
 
         # ---- per-area-light triangle CDFs (mesh.cpp:15-46)

@@ -1,9 +1,10 @@
 """Render-time scene: small dataclasses of tensors, plus `RenderConfig`.
 
-The subset of `optix_renderer_tpu/scene/data.py` that the regenerating path
-kernel reads: triangles and spheres, the shape/BSDF/texture attachment
-tables, emitters with their triangle CDFs, the emitter-pick distribution,
-the camera and a constant environment radiance. Field names and layouts
+The subset of `optix_renderer_tpu/scene/data.py` that the path kernel and
+the general path read: triangles (with their LBVH tables from 257
+triangles on) and spheres, the shape/BSDF/texture attachment tables,
+emitters with their triangle CDFs, the emitter-pick distribution, the
+camera and a constant environment radiance. Field names and layouts
 are the JAX package's, so `scene_from_numpy` can carry a JAX scene across
 by name. Every table has `.to(device)`.
 """
@@ -67,6 +68,14 @@ class _Tables:
 
 
 @dataclass(frozen=True)
+class Bvh(_Tables):
+    """Packed threaded LBVH over the triangles (ops/bvh.py)."""
+
+    packed: torch.Tensor  # [Nn,8] f32: min(3) max(3) skip bits, first bits
+    leaf: torch.Tensor  # [n_leaves,40] f32: 4 × (v0 e1 e2, id bits)
+
+
+@dataclass(frozen=True)
 class Geometry(_Tables):
     """World-space triangle soup (v0 / edges / per-corner normals, UVs) + spheres."""
 
@@ -79,10 +88,20 @@ class Geometry(_Tables):
     tri_uv0: torch.Tensor  # [T,2]
     tri_uv1: torch.Tensor
     tri_uv2: torch.Tensor
+    tri_tang: torch.Tensor  # [T,4] UV tangent dp/du + handedness (zero: no UV chart)
     tri_shape: torch.Tensor  # [T] i32 shape id
     sph_center: torch.Tensor  # [S,3]
     sph_radius: torch.Tensor  # [S]
     sph_shape: torch.Tensor  # [S] i32 shape id
+    bvh: Bvh | None = None  # from ops/bvh.MIN_TRIS_FOR_BVH triangles on
+    # [T,9] f32 v0 | e1 | e2 per row, the brute-force kernel's table; packed
+    # from tri_v0 / e1 / e2 when not given, so every call reuses one copy
+    tri_table: torch.Tensor | None = None
+
+    def __post_init__(self):
+        if self.tri_table is None:
+            object.__setattr__(self, "tri_table", torch.cat(
+                [self.tri_v0, self.tri_e1, self.tri_e2], dim=1).to(torch.float32).contiguous())
 
 
 @dataclass(frozen=True)
@@ -244,12 +263,14 @@ def scene_from_numpy(tree) -> SceneData:
         envmap_pixels=img.shape[0] * img.shape[1] if env_id >= 0 else 1,
     )
     i32 = torch.int32
+    has_bvh = np.asarray(g.bvh.packed).shape[0] > 0
     geometry = Geometry(
         **{k: _t(getattr(g, k)) for k in (
             "tri_v0", "tri_e1", "tri_e2", "tri_n0", "tri_n1", "tri_n2",
-            "tri_uv0", "tri_uv1", "tri_uv2", "sph_center", "sph_radius")},
+            "tri_uv0", "tri_uv1", "tri_uv2", "tri_tang", "sph_center", "sph_radius")},
         tri_shape=_t(g.tri_shape, i32),
         sph_shape=_t(g.sph_shape, i32),
+        bvh=Bvh(packed=_t(g.bvh.packed), leaf=_t(g.bvh.leaf)) if has_bvh else None,
     )
     emitters = Emitters(
         **{k: _t(getattr(em, k)) for k in (

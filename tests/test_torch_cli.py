@@ -39,13 +39,20 @@ def test_render_cuda_without_gpu_raises(tmp_path, monkeypatch):
 
 
 def test_cpu_render_does_not_import_jax(tmp_path):
+    """The path kernel's plain version and the scan path over the LBVH
+    (a 300-triangle scene) render without JAX."""
     code = (
-        "import sys\n"
+        "import dataclasses, sys\n"
         "from optix_renderer_tpu_torch.scene.presets import make_cornell_box\n"
+        "from optix_renderer_tpu_torch.scene.presets import make_tessellated_cornell\n"
         "from optix_renderer_tpu_torch.render.render import render\n"
         "s, c, _ = make_cornell_box(8, 6, 1)\n"
         "out = render(s, c, sample_count=1, device='cpu')\n"
         "assert out['composite'].shape == (6, 8, 3)\n"
+        "s, c, _ = make_tessellated_cornell(8, 6, 1, nu=12, nv=7)\n"
+        "assert c.n_tris == 300 and s.geometry.bvh is not None\n"
+        "out = render(s, dataclasses.replace(c, max_depth=3), sample_count=1, device='cpu')\n"
+        "assert out['composite'].shape == (6, 8, 3) and (out['weights'] > 0).all()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'optix_renderer_tpu.')))\n"
         "assert 'optix_renderer_tpu' not in sys.modules and not bad, bad\n"
         "print('ok')\n"
