@@ -31,7 +31,25 @@ Drives the port's main path (`optix_renderer_tpu_torch`, no JAX) once:
 9. renders config B, the Cornell box at 800x600 with the mitchell filter,
    path_mis, depth 16, 4 spp, and counts `isect_brute`'s launches;
 10. renders the golden configuration through the general path
-   (`mega=False`) and holds it against tests/golden/cbox_{path_mis,path_mats}.exr.
+   (`mega=False`) and holds it against tests/golden/cbox_{path_mis,path_mats}.exr;
+11. compares the path kernel's medium branch (65–8,192 triangles) with its
+   plain version on the GPU: config M's geometry (the tessellated Cornell
+   box at nu=40, nv=51, 8,012 triangles) at 160x120, box filter, depth 4,
+   4 spp, path_mis and path_mats, and a 70-triangle strip room with a glass
+   sphere and a spot light at 64x48; prints ptxas' registers and spills of
+   every kernel instance;
+12. renders config M at 800x600, path_mis, depth 16, gaussian filter through
+   `render()` (1-spp warm-up, then 16 spp timed with the film on the host),
+   counts the launches (the path kernel at least once, no intersection
+   kernel: the scene did not take the scan path), times one
+   800x600 x 16-spp kernel launch and holds its first 300 rows against the
+   plain version on the same tables, and prints beside the sweep's bound
+   the bound of an LBVH walk (nodes and leaves per ray of config M's own
+   camera and bounce rays);
+13. runs the CLI on the GPU on config M's XML at 160x120, 4 spp;
+14. runs the two probe entry points (`tools/probe_copy.py`,
+   `tools/prof_parts.py`) with their launches counted, and compares each
+   probe kernel with its plain version.
 
 Every phase raises on failure. The second-to-last line is a JSON object with
 each kernel's route, source, launches, error, times and bound; the last line
@@ -42,6 +60,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -55,6 +74,7 @@ ROOT = Path(__file__).resolve().parent
 KERNEL_SOURCE = "optix_renderer_tpu_torch/csrc/pathk.cu"
 REPLACES = "optix_renderer_tpu/ops/pallas/pathk.py:992"
 ISECT_SOURCE = "optix_renderer_tpu_torch/csrc/isect.cu"
+PROBES_SOURCE = "optix_renderer_tpu_torch/csrc/probes.cu"
 # the published H100 SXM peaks (FP32 outside the tensor cores, HBM3)
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
@@ -70,6 +90,9 @@ OPS_RAY = 9
 RAY_BYTES = 48
 # rays per intersection launch of configs A and B (one per pixel)
 MAIN_RAYS = 800 * 600
+# rows of config M's 800x600 launch that phase 12 holds against the plain
+# version (0.3-0.4 s per row on an H100, 96-126 s for the 300)
+M_REF_ROWS = 300
 
 
 def phase(n: int, msg: str) -> None:
@@ -235,6 +258,50 @@ def gate_any(what, got, ref) -> float:
     if not share <= 1e-4:
         raise AssertionError(f"{what}: any-hit masks differ on {share} of the rays")
     return max_abs
+
+
+def ptxas_report(text: str) -> dict[str, dict[str, int]]:
+    """{kernel: {registers, spill_stores, spill_loads}} from `nvcc -Xptxas -v`."""
+    out, name = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)):
+            out[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif name and (m := re.search(r"Used (\d+) registers", ln)):
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def strip_room_xml(tmp: Path) -> Path:
+    """A floor + back-wall room with the 66-triangle strip of
+    tests/test_torch_medium.py (70 triangles in all), a glass sphere and a
+    spot light."""
+    from optix_renderer_tpu_torch.scene.presets import write_quad_obj
+
+    write_quad_obj(tmp, "floor", [(-1, 0, -1), (-1, 0, 1), (1, 0, 1), (1, 0, -1)])
+    write_quad_obj(tmp, "back", [(-1, 0, -1), (1, 0, -1), (1, 2, -1), (-1, 2, -1)])
+    verts = [f"v {x} 0.25 {-1.0 + 0.1 * k}" for k in range(34) for x in (-1.0, 1.0)]
+    faces = [f"f {2 * k + 1} {2 * k + 3} {2 * k + 4} {2 * k + 2}" for k in range(33)]
+    (tmp / "strip.obj").write_text("\n".join(verts + faces) + "\n")
+    xml = tmp / "strip_room.xml"
+    xml.write_text(
+        '<scene><integrator type="path_mis"/><camera type="perspective">'
+        '<integer name="width" value="64"/><integer name="height" value="48"/>'
+        '<float name="fov" value="40"/><transform name="toWorld">'
+        '<lookat origin="0 1.0 4.3" target="0 1.0 0" up="0 1 0"/></transform></camera>'
+        '<shape type="obj"><string name="filename" value="floor.obj"/><bsdf type="diffuse"/></shape>'
+        '<shape type="obj"><string name="filename" value="back.obj"/><bsdf type="diffuse"/></shape>'
+        '<shape type="obj"><string name="filename" value="strip.obj"/></shape>'
+        '<shape type="sphere"><point name="center" value="0.2 0.6 0.1"/>'
+        '<float name="radius" value="0.3"/><bsdf type="dielectric"/></shape>'
+        '<emitter type="spot"><point name="position" value="0 1.8 1"/>'
+        '<vector name="direction" value="0 -1 -0.5"/><color name="power" value="60 50 40"/>'
+        '<float name="falloffstart" value="15"/><float name="totalwidth" value="30"/></emitter>'
+        "</scene>")
+    return xml
 
 
 def golden_stats(out, ref) -> dict:
@@ -557,6 +624,168 @@ def main() -> None:
             raise AssertionError(f"golden {integ} through the scan path: {st}")
     phase(10, "the scan path reproduces the goldens")
 
+    # ---- 11. the path kernel's medium branch vs its plain version
+    from optix_renderer_tpu_torch.scene.build import load_scene
+    from optix_renderer_tpu_torch.scene.presets import tessellated_cornell_xml
+
+    for name, rep_ in ptxas_report(info.get("ptxas", "")).items():
+        if "pathk_kernel" in name or "probes" in name:
+            print(f"  ptxas {name}: {rep_}")
+    medium_regs = {k: v for k, v in ptxas_report(info.get("ptxas", "")).items()
+                   if re.search(r"pathk_kernelILb[01]ELb1E", k)}
+    if len(medium_regs) != 2:
+        raise AssertionError(f"ptxas reported {len(medium_regs)} medium instances, not 2")
+    err_medium = 0.0
+    for integ in ("path_mis", "path_mats"):
+        scene_m, cfg_m, _ = make_tessellated_cornell(160, 120, 4, integ, nu=40, nv=51)
+        cfg_m = dataclasses.replace(cfg_m, max_depth=4, rfilter="box")
+        tables, meta = pathk.build_pathk_tables(scene_m, cfg_m, dev)
+        if not meta["t_cnt"] == 8012 > pathk.VPU_MAX_TRIS:
+            raise AssertionError(f"config M is not the 8,012-triangle medium branch: {meta}")
+        got = pathk.pathk_trace(tables, meta, cfg_m, n_pix=160 * 120, spp0=0, n_spp=4)
+        ref = pathk.pathk_trace_ref(tables, meta, cfg_m, n_pix=160 * 120, spp0=0, n_spp=4)
+        torch.cuda.synchronize()
+        st = compare(film(got, 120, 160), film(ref, 120, 160), 4, f"config M 160x120 box {integ}")
+        err_medium = max(err_medium, st["max_abs_err"])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        scene_s, cfg_s, _ = load_scene(strip_room_xml(Path(tmp)))
+    cfg_s = dataclasses.replace(cfg_s, max_depth=4, rfilter="box")
+    tables, meta = pathk.build_pathk_tables(scene_s, cfg_s, dev)
+    if not (meta["t_cnt"] == 70 > pathk.VPU_MAX_TRIS and meta["n_sph"] == 1):
+        raise AssertionError(f"the strip room is not a 70-triangle medium scene: {meta}")
+    got = pathk.pathk_trace(tables, meta, cfg_s, n_pix=64 * 48, spp0=0, n_spp=4)
+    ref = pathk.pathk_trace_ref(tables, meta, cfg_s, n_pix=64 * 48, spp0=0, n_spp=4)
+    torch.cuda.synchronize()
+    err_medium = max(err_medium, compare(film(got, 48, 64), film(ref, 48, 64), 4,
+                                         "strip room 64x48 box path_mis")["max_abs_err"])
+    phase(11, "the medium branch agrees with its plain version (config M geometry 160x120, "
+              f"strip room 64x48); medium instances {medium_regs}")
+
+    # ---- 12. config M through render(): the medium branch on the main path
+    scene_m, cfg_m, _ = make_tessellated_cornell(800, 600, 16, "path_mis", nu=40, nv=51)
+    cfg_m = dataclasses.replace(cfg_m, max_depth=16, rfilter="gaussian")
+    render(scene_m, cfg_m, sample_count=1, device=dev)  # warm-up
+    pathk.LAUNCHES = 0
+    for k in isect.LAUNCHES:
+        isect.LAUNCHES[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out_m = render(scene_m, cfg_m, sample_count=16, device=dev)  # returns host numpy
+    dt_m = time.time() - t0
+    launches_m, isect_m = pathk.LAUNCHES, dict(isect.LAUNCHES)
+    comp = out_m["composite"]
+    print(f"  config M 800x600 path_mis depth 16 gaussian, 16 spp: {dt_m:.4f} s, "
+          f"{800 * 600 * 16 / dt_m / 1e6:.4f} Mpaths/s on {smi}; path kernel launches "
+          f"{launches_m}, intersection kernel launches {isect_m}; film mean {comp.mean():.5f}")
+    if launches_m < 1 or any(isect_m.values()):
+        raise AssertionError(f"config M did not take the path kernel alone: {launches_m}, {isect_m}")
+    if not (np.isfinite(comp).all() and comp.shape == (600, 800, 3) and comp.mean() > 0
+            and (out_m["weights"] == 16).all()):
+        raise AssertionError("config M film is not finite / positive / 16 spp")
+    tables, meta = pathk.build_pathk_tables(scene_m, cfg_m, dev)
+    n_pix = 800 * 600
+    got = pathk.pathk_trace(tables, meta, cfg_m, n_pix=n_pix, spp0=0, n_spp=16)
+    medium_ms = event_ms(lambda: pathk.pathk_trace(tables, meta, cfg_m, n_pix=n_pix, spp0=0,
+                                                   n_spp=16), reps=2)
+    iters_m = float(got[10].double().sum())
+    medium_bound = bound(iters_m * (meta["t_cnt"] * OPS_MT + meta["n_sph"] * OPS_SPHERE + 5),
+                         16 * 4 * n_pix)
+    # the plain version traces pixels [0, n_ref) of the same 800x600 tables;
+    # every pixel runs on its own, so they must equal the full launch's
+    n_ref = 800 * M_REF_ROWS
+    ref_m, medium_plain_ms = timed(lambda: pathk.pathk_trace_ref(tables, meta, cfg_m, n_pix=n_ref,
+                                                                 spp0=0, n_spp=16))
+    _, medium_ref_ms = timed(lambda: pathk.pathk_trace(tables, meta, cfg_m, n_pix=n_ref, spp0=0,
+                                                       n_spp=16))
+    st_m = compare(film(got[:, :n_ref], M_REF_ROWS, 800), film(ref_m, M_REF_ROWS, 800), 16,
+                   f"config M 800x600 gaussian depth 16, rows 0-{M_REF_ROWS - 1}")
+    err_medium = max(err_medium, st_m["max_abs_err"])
+    # The sweep's bound is that of a brute-force sweep, not of the function:
+    # an LBVH walk (which the port builds from 257 triangles) needs this many
+    # operations per closest hit, counted on config M's camera and bounce rays
+    rng_m = np.random.default_rng(12)
+    geom_m = scene_m.geometry.to(dev)
+    packed_m, leaf_m = geom_m.bvh.packed, geom_m.bvh.leaf
+    cam_m = camera_rays(scene_m, cfg_m, MAIN_RAYS, rng_m, dev)
+    first_m = isect.isect_bvh(packed_m, leaf_m, *cam_m, with_visits=True)
+    bounce_m, _ = bounce_and_shadow_rays(geom_m, cam_m, first_m[0], first_m[1], rng_m)
+    vis_m = torch.cat([first_m[4], isect.isect_bvh(packed_m, leaf_m, *bounce_m,
+                                                   with_visits=True)[4]], dim=1)
+    nodes_m, leaves_m = (float(x) for x in vis_m.double().mean(dim=1))
+    walk_ray_ops = nodes_m * OPS_SLAB + leaves_m * 4 * (OPS_MT + 1) + OPS_RAY
+    walk_bound = bound(iters_m * (walk_ray_ops + meta["n_sph"] * OPS_SPHERE + 5), 16 * 4 * n_pix)
+    print(f"  config M kernel, 800x600 x 16 spp: {medium_ms:.3f} ms (sweep bound "
+          f"{medium_bound[0]:.3f} ms, {medium_bound[1]}; {iters_m:.0f} iterations, "
+          f"{iters_m / n_pix / 16:.3f} per sample; LBVH-walk bound {walk_bound[0]:.4f} ms at "
+          f"{walk_ray_ops:.0f} operations per ray, {nodes_m:.1f} nodes and {leaves_m:.2f} leaves); "
+          f"rows 0-{M_REF_ROWS - 1}: kernel {medium_ref_ms:.3f} ms, plain version "
+          f"{medium_plain_ms:.3f} ms on {smi}")
+    phase(12, f"config M: {800 * 600 * 16 / dt_m / 1e6:.4f} Mpaths/s, {launches_m} launches")
+
+    # ---- 13. the CLI on config M
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        xml = tessellated_cornell_xml(tmp, 160, 120, 4, "path_mis", nu=40, nv=51)
+        subprocess.run([sys.executable, "-m", "optix_renderer_tpu_torch", "render", str(xml),
+                        "--device", "cuda", "--spp", "4", "--size", "160x120"],
+                       cwd=ROOT, check=True, timeout=600)
+        exr, png = xml.with_suffix(".exr"), xml.with_suffix(".png")
+        img = read_exr(exr)
+        if not (png.stat().st_size > 0 and img.shape == (120, 160, 3) and np.isfinite(img).all()
+                and img.mean() > 0):
+            raise AssertionError("CLI output for config M is missing or malformed")
+    phase(13, "CLI rendered config M on cuda and wrote EXR + PNG")
+
+    # ---- 14. the probes: their entry points, then kernel vs plain version
+    from optix_renderer_tpu_torch.tools import probe_copy, prof_parts
+
+    probe_copy.LAUNCHES = prof_parts.LAUNCHES = 0
+    pc = probe_copy.run(dev)
+    parts = prof_parts.run(dev)
+    launches_pc, launches_ic = probe_copy.LAUNCHES, prof_parts.LAUNCHES
+    if not (launches_pc >= 1 and launches_ic >= 1):
+        raise AssertionError(f"a probe launched its kernel no time: {launches_pc}, {launches_ic}")
+    if not (pc["rows_equal"] and pc["max_err"] <= 1e-6 * max(1.0, pc["scale"])):
+        raise AssertionError(f"probe_copy against the probe's numpy reference: {pc['max_err']}")
+    x, sel = probe_copy.make_inputs(dev)
+    got = probe_copy.probe_copy(x, sel)
+    ref = probe_copy.probe_copy_ref(x, sel)
+    err_pc = float((got - ref).abs().max())
+    if not err_pc <= 1e-6 * float(ref.abs().max()):
+        raise AssertionError(f"probe_copy kernel vs plain: {err_pc}")
+    pc_out = torch.empty_like(got)
+    pc_ms = prof_parts.kernel_ms(lambda: probe_copy._launch(x, sel, pc_out), reps=20)
+    pc_wrapper_ms = event_ms(lambda: probe_copy.probe_copy(x, sel), reps=20)
+    pc_plain_ms = event_ms(lambda: probe_copy.probe_copy_ref(x, sel))
+    n_flag = sum(probe_copy.flags())
+    pc_bound = bound(n_flag * probe_copy.CS * probe_copy.W,
+                     n_flag * probe_copy.CS * probe_copy.W * 4 + probe_copy.C * 4
+                     + probe_copy.OUT_ROWS * probe_copy.W * 4)
+    print(f"  probe_copy: max err {err_pc:.3e} vs plain, {pc['max_err']:.3e} vs the probe's "
+          f"reference; kernel {pc_ms:.4f} ms (bound {pc_bound[0]:.5f} ms, {pc_bound[1]}), whole "
+          f"wrapper call {pc_wrapper_ms:.4f} ms, plain {pc_plain_ms:.3f} ms on {smi}")
+    x, tri = prof_parts.make_inputs(dev)
+    err_ic, ic_plain = 0.0, {}
+    for mode in prof_parts.MODES:
+        got = prof_parts.iter_cost(x, tri, 64, mode)
+        ref, ic_plain[mode] = timed(lambda: prof_parts.iter_cost_ref(x, tri, 64, mode))
+        e = float((got - ref).abs().max())
+        if not e <= 1e-6 * float(ref.abs().max()):
+            raise AssertionError(f"iter_cost {mode} kernel vs plain: {e}")
+        err_ic = max(err_ic, e)
+        r = parts[mode]
+        print(f"  iter_cost {mode}: t64 {r['ms'][64]:.4f} ms, t1024 {r['ms'][1024]:.4f} ms, "
+              f"marginal {r['us_per_iter']:.5f} us/iteration, {r['us_per_block_iter']:.6f} "
+              f"us/block-iteration; plain at 64 iterations {ic_plain[mode]:.3f} ms; max err "
+              f"{e:.3e} on {smi}")
+    lanes = prof_parts.NB * prof_parts.LANES
+    # the shadow ray is the current ray (as in tools/prof_parts2.py), so its
+    # test shares the closest test's arithmetic: one test per triangle plus
+    # the shadow's two range checks, the ray (2) and the acc update (6)
+    ic_bound = bound(64 * lanes * (prof_parts.TRIS * (OPS_MT + 2) + 8),
+                     lanes * 4 + tri.numel() * 4 + 8 * lanes * 4)
+    phase(14, f"probes agree with their plain versions; launches probe_copy {launches_pc}, "
+              f"iter_cost {launches_ic}")
+
     def row(name, source, replaces, launches, err, ms, plain_ms, bnd, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -574,6 +803,20 @@ def main() -> None:
         row("isect_brute", ISECT_SOURCE, "optix_renderer_tpu/ops/pallas/mxu_intersect.py:195",
             launches_b["isect_brute"], err_brute, ms_brute, plain_brute, b_brute, rays=MAIN_RAYS,
             also_replaces="optix_renderer_tpu/ops/pallas/mt_kernel.py:140"),
+        row("pathk_trace_medium", KERNEL_SOURCE, REPLACES, launches_m, err_medium, medium_ms,
+            medium_plain_ms, medium_bound, branch="MXU, optix_renderer_tpu/ops/pallas/pathk.py:622",
+            shape="800x600 x 16 spp", plain_shape=f"rows 0-{M_REF_ROWS - 1} of 800x600 x 16 spp",
+            ms_at_plain_shape=medium_ref_ms, iterations=iters_m,
+            median_rel_err=st_m["median_rel_err"], walk_bound_ms=walk_bound[0],
+            walk_ops_per_ray=walk_ray_ops,
+            ptxas={k: v for k, v in medium_regs.items()}),
+        row("probe_copy", PROBES_SOURCE, "tools/probe_mosaic.py:50", launches_pc, err_pc, pc_ms,
+            pc_plain_ms, pc_bound, wrapper_ms=pc_wrapper_ms),
+        row("iter_cost", PROBES_SOURCE, "tools/prof_parts2.py:40", launches_ic, err_ic,
+            parts["isect"]["ms"][64], ic_plain["isect"], ic_bound, shape="isect, 64 iterations",
+            modes={m: {"ms_64": r["ms"][64], "ms_1024": r["ms"][1024],
+                       "us_per_iter": r["us_per_iter"], "plain_ms_64": ic_plain[m]}
+                   for m, r in parts.items()}),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,9 @@
 
 XML or preset scene in, film and EXR / PNG out, with `path_mis` and
 `path_mats`. `render()` dispatches as the JAX package does: a scene the
-path kernel takes (up to 64 triangles, box / tent / gaussian filter) runs
-through the regenerating path kernel `csrc/pathk.cu`; every other scene
+path kernel takes (up to 8,192 triangles, box / tent / gaussian filter)
+runs through the regenerating path kernel `csrc/pathk.cu` (its small
+branch up to 64 triangles, its medium branch above); every other scene
 runs the general scan path, whose intersections go through the LBVH and
 brute-force kernels of `csrc/isect.cu`. On a CUDA device the kernels
 launch; on the CPU their plain torch versions run. The package imports

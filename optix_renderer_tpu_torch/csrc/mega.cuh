@@ -1,9 +1,9 @@
 // Device library of the path kernel (csrc/pathk.cu), one thread per pixel.
 //
 // Counterpart of optix_renderer_tpu/ops/pallas/mega.py and of its plain
-// torch twin ops/cuda/mega.py: vector algebra, pcg32 + tea, sphere hits,
-// per-id table reads, the five BSDFs' sample / eval / pdf and the Disney
-// BRDF. The formulas and their order of operations are those of the torch
+// torch twin ops/cuda/mega.py: vector algebra, pcg32 + tea, Moller-Trumbore
+// and sphere hits, per-id table reads, the five BSDFs' sample / eval / pdf
+// and the Disney BRDF. The formulas and their order of operations are those of the torch
 // twin, so the kernel tracks the plain version per pixel; every literal is
 // a float literal so no expression is silently evaluated in double.
 //
@@ -143,8 +143,27 @@ HD uint32_t tea4(uint32_t v0, uint32_t v1) {
 }
 
 // ---------------------------------------------------------------------------
-// spheres and per-id table reads
+// triangles, spheres and per-id table reads
 // ---------------------------------------------------------------------------
+
+// Moller-Trumbore (mesh.cpp:61-97); true and (u, v, t) when the test passes
+HD bool mt_test(V3 v0, V3 e1, V3 e2, V3 o, V3 d, float& u, float& v, float& t) {
+  V3 pv{d.y * e2.z - d.z * e2.y, d.z * e2.x - d.x * e2.z, d.x * e2.y - d.y * e2.x};
+  float det = e1.x * pv.x + e1.y * pv.y + e1.z * pv.z;
+  bool det_ok = fabsf(det) > 1e-12f;
+  float inv = 1.0f / (det_ok ? det : 1e-12f);
+  V3 tv = vsub(o, v0);
+  u = (tv.x * pv.x + tv.y * pv.y + tv.z * pv.z) * inv;
+  V3 qv{tv.y * e1.z - tv.z * e1.y, tv.z * e1.x - tv.x * e1.z, tv.x * e1.y - tv.y * e1.x};
+  v = (d.x * qv.x + d.y * qv.y + d.z * qv.z) * inv;
+  t = (e2.x * qv.x + e2.y * qv.y + e2.z * qv.z) * inv;
+  return det_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f;
+}
+
+// the same test on a triangle row that starts v0 | e1 | e2
+HD bool mt_hit(const float* tr, V3 o, V3 d, float& u, float& v, float& t) {
+  return mt_test(load3(tr), load3(tr + 3), load3(tr + 6), o, d, u, v, t);
+}
 
 // Stable-quadratic sphere test (sphere.cpp:67-124): closest t in [mint, cutoff),
 // sid = -1 on a miss. Rows with radius <= 0 are padding.

@@ -22,7 +22,7 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("mega.cuh", "pathk.cu", "isect.cu")
+SOURCES = ("mega.cuh", "pathk.cu", "isect.cu", "probes.cu")
 UNITS = tuple(name for name in SOURCES if name.endswith(".cu"))
 # no --use_fast_math: the samplers go through logf/sinf/cosf and must keep
 # full-precision results to track the plain version per pixel.
@@ -94,7 +94,8 @@ def load() -> ctypes.CDLL:
         lib.pathk_trace_launch.argtypes = [
             vp, vp, vp, vp,  # out, scal_f, em_rows, env
             vp, i,  # sph, sphere rows
-            vp, i, vp, i,  # tri, t_cnt, et, te_cnt
+            vp, i,  # tri, t_cnt
+            vp, i, i,  # et, te_cnt, te_pad
             i, i, i, i, i, i,  # n_pix, width, spp0, seed, n_spp, max_depth
             i, i,  # n_emitters, n_lights
             i, i, i,  # mis, rfilter, use_dof
@@ -115,6 +116,14 @@ def load() -> ctypes.CDLL:
             vp,  # stream
         ]
         lib.isect_brute_launch.restype = i
+        lib.probe_copy_launch.argtypes = [vp, vp, vp, vp]  # x, sel, out, stream
+        lib.probe_copy_launch.restype = i
+        lib.iter_cost_launch.argtypes = [
+            vp, vp, vp,  # x, tri, out
+            i, i, i,  # nb, n_it, mode
+            vp,  # stream
+        ]
+        lib.iter_cost_launch.restype = i
         lib.pathk_error_string.argtypes = [i]
         lib.pathk_error_string.restype = ctypes.c_char_p
         _lib = lib

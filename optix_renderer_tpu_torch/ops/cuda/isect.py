@@ -33,6 +33,10 @@ LAUNCHES = {"isect_bvh_closest": 0, "isect_bvh_any": 0, "isect_brute": 0}
 _SWEEP_PAIRS = 1 << 22
 
 
+def _sweep_chunk(n: int, t_cnt: int) -> int:
+    return max(1, min(t_cnt, _SWEEP_PAIRS // max(n, 1)))
+
+
 def mt_sweep_ref(o, d, mint, cutoff, v0, e1, e2):
     """Plain brute-force closest hit: chunked [N, T] Möller–Trumbore + argmin.
 
@@ -45,7 +49,7 @@ def mt_sweep_ref(o, d, mint, cutoff, v0, e1, e2):
     best_t = cutoff.clone()
     best_u = torch.zeros(n, dtype=torch.float32, device=o.device)
     best_v = torch.zeros_like(best_u)
-    chunk = max(1, min(t_cnt, _SWEEP_PAIRS // max(n, 1)))
+    chunk = _sweep_chunk(n, t_cnt)
     rows = torch.arange(n, device=o.device)
     for c0 in range(0, t_cnt, chunk):
         sl = slice(c0, c0 + chunk)
@@ -61,6 +65,20 @@ def mt_sweep_ref(o, d, mint, cutoff, v0, e1, e2):
         best_v = torch.where(better, v[rows, j], best_v)
         best_id = torch.where(better, (j + c0).to(torch.int32), best_id)
     return best_id, best_t, best_u, best_v
+
+
+def mt_any_ref(o, d, mint, cutoff, v0, e1, e2):
+    """Plain brute-force any hit: bool [N], true where some triangle is hit
+    in [mint, cutoff); chunked as `mt_sweep_ref`."""
+    n, t_cnt = o.shape[0], v0.shape[0]
+    occl = torch.zeros(n, dtype=torch.bool, device=o.device)
+    chunk = _sweep_chunk(n, t_cnt)
+    for c0 in range(0, t_cnt, chunk):
+        sl = slice(c0, c0 + chunk)
+        t, _, _, h = mt_lanes(o[:, None, :], d[:, None, :], v0[None, sl], e1[None, sl],
+                              e2[None, sl])
+        occl |= (h & (t >= mint[:, None]) & (t < cutoff[:, None])).any(dim=1)
+    return occl
 
 
 def _check_rays(o, d, mint, cutoff):

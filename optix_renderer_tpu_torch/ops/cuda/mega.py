@@ -152,7 +152,8 @@ def mega_unsupported(scene, config) -> str | None:
     if t_cnt == 0:
         return "scenes without triangles need the general path: ROADMAP Queue 1 item 8"
     if t_cnt > MAX_MXU_TRIS:
-        return f"{t_cnt} triangles need the BVH walk: ROADMAP Queue 1 item 7 (slice 3)"
+        return (f"{t_cnt} triangles > {MAX_MXU_TRIS}: the scan path walks the LBVH "
+                "(the walk inside the path kernel is ROADMAP Queue 1 item 7)")
     if int(g.sph_center.shape[0]) > MAX_SPHERES:
         return f"more than {MAX_SPHERES} spheres need the LBVH: ROADMAP Queue 1 item 7"
     if config.integrator not in ("path_mis", "path_mats"):

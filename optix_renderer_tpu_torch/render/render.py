@@ -3,7 +3,9 @@ checkpoints.
 
 Counterpart of `optix_renderer_tpu/render/render.py`, dispatched as the JAX
 package dispatches (render.py:203-224), with no gate on the device: a scene
-the path kernel takes (`pathk_eligible`) goes to `mega_render.mega_step`,
+the path kernel takes (`pathk_eligible`: ≤ 8,192 triangles, ≤ 64 spheres,
+a box / tent / gaussian filter) goes to `mega_render.mega_step`, whose
+kernel has a small branch (≤ 64 triangles) and a medium branch (65–8,192);
 every other scene, or any scene with `mega=False`, to the scan path below;
 one sample loop drives either. The scan path renders one sample round at a
 time over chunks of up to `MAX_LANES` pixels: camera rays, the

@@ -39,8 +39,9 @@ def test_render_cuda_without_gpu_raises(tmp_path, monkeypatch):
 
 
 def test_cpu_render_does_not_import_jax(tmp_path):
-    """The path kernel's plain version and the scan path over the LBVH
-    (a 300-triangle scene) render without JAX."""
+    """The path kernel's plain version, small and medium branch (a
+    300-triangle scene), and the scan path over the LBVH (the same scene with
+    `mega=False`) render without JAX."""
     code = (
         "import dataclasses, sys\n"
         "from optix_renderer_tpu_torch.scene.presets import make_cornell_box\n"
@@ -51,7 +52,10 @@ def test_cpu_render_does_not_import_jax(tmp_path):
         "assert out['composite'].shape == (6, 8, 3)\n"
         "s, c, _ = make_tessellated_cornell(8, 6, 1, nu=12, nv=7)\n"
         "assert c.n_tris == 300 and s.geometry.bvh is not None\n"
-        "out = render(s, dataclasses.replace(c, max_depth=3), sample_count=1, device='cpu')\n"
+        "c = dataclasses.replace(c, max_depth=3)\n"
+        "out = render(s, c, sample_count=1, device='cpu')\n"
+        "assert out['composite'].shape == (6, 8, 3) and (out['weights'] == 1.0).all()\n"
+        "out = render(s, c, sample_count=1, device='cpu', mega=False)\n"
         "assert out['composite'].shape == (6, 8, 3) and (out['weights'] > 0).all()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'optix_renderer_tpu.')))\n"
         "assert 'optix_renderer_tpu' not in sys.modules and not bad, bad\n"

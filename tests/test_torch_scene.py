@@ -2,8 +2,10 @@
 
 The port's numpy builder and `scene_from_numpy` (the JAX scene carried
 across) must both pack the path-kernel tables of the JAX package's
-`build_pathk_tables` (VPU branch) to atol 1e-6; `sample_to_camera_matrix`
-agrees to 1e-6; what the port cannot render yet raises.
+`build_pathk_tables` (VPU branch) to atol 1e-6, and the medium branch's
+tables must hold the fields of the JAX MXU branch's `attr` / `etc` tables;
+`sample_to_camera_matrix` agrees to 1e-6; what the port cannot render yet
+raises.
 """
 
 import dataclasses
@@ -60,9 +62,13 @@ def _compare_tables(jscene, jconfig, tscene, tconfig):
     for scene in (tscene, scene_from_numpy(jax.tree.map(np.asarray, jscene))):
         tt, tm = pathk.build_pathk_tables(scene, tconfig)
         for name, jname in TABLES.items():
-            ref = np.asarray(jt[jname]).reshape(tuple(tt[name].shape))
-            np.testing.assert_allclose(tt[name].numpy(), ref, atol=1e-6, rtol=0, err_msg=name)
-        assert {k: tm[k] for k in tm} == {k: jm[k] for k in tm}
+            ref = np.asarray(jt[jname])
+            got = tt[name].numpy()[: ref.shape[0]] if name == "et" else tt[name].numpy()
+            np.testing.assert_allclose(got, ref.reshape(got.shape), atol=1e-6, rtol=0,
+                                       err_msg=name)
+        shared = set(tm) & set(jm)
+        assert {k: tm[k] for k in shared} == {k: jm[k] for k in shared}
+        assert (tm["t_cnt"] > pathk.VPU_MAX_TRIS) == jm["use_mxu"]
 
 
 def test_cornell_tables_match_jax():
@@ -78,6 +84,29 @@ def test_room_tables_match_jax(tmp_path, kind):
     js, jc, _ = jbuild.load_scene(xml)
     ts, tc, _ = build.load_scene(xml)
     _compare_tables(js, jc, ts, tc)
+
+
+# port column of the [T, 48] triangle rows → JAX column of the MXU `attr` table
+_ATTR_OF_TRI = {**{c: 30 + c for c in range(9)}, **{9 + c: c for c in range(12)},
+                **{21 + c: 18 + c for c in range(12)}, **{33 + c: 40 + c for c in range(10)}}
+
+
+def test_medium_tables_match_jax_mxu_branch():
+    js, jc, _ = jpresets.make_tessellated_cornell(24, 16, 1, nu=12, nv=7)
+    ts, tc, _ = presets.make_tessellated_cornell(24, 16, 1, nu=12, nv=7)
+    jt, jm = jpathk.build_pathk_tables(js, jc)
+    tt, tm = pathk.build_pathk_tables(ts, tc)
+    assert jm["use_mxu"] and tm["t_cnt"] == jm["t_cnt"] == 300 > pathk.VPU_MAX_TRIS
+    attr = np.asarray(jt["attr"]).T  # [Tpad, 56]
+    tri = tt["tri"].numpy()
+    for c, jc_ in _ATTR_OF_TRI.items():
+        np.testing.assert_allclose(tri[:, c], attr[:300, jc_], atol=1e-6, rtol=0, err_msg=str(c))
+    np.testing.assert_allclose(tt["et"].numpy(), np.asarray(jt["etc"]), atol=1e-6, rtol=0)
+    assert tm["te_pad"] == np.asarray(jt["etc"]).shape[0] and tm["te_cnt"] == jm["te_cnt"]
+    for name in ("em_rows", "env", "sph"):
+        np.testing.assert_allclose(tt[name].numpy(), np.asarray(jt[name]).reshape(
+            tuple(tt[name].shape)), atol=1e-6, rtol=0, err_msg=name)
+    np.testing.assert_allclose(tt["scal_f"].numpy(), np.asarray(jt["scal_f"])[0], atol=1e-6)
 
 
 def test_sample_to_camera_matrix_matches_jax():
@@ -105,13 +134,14 @@ def test_unsupported_scenes_raise(tmp_path):
 
 
 def test_render_refuses_what_the_kernel_does_not_cover(tmp_path):
-    """What the path kernel does not cover takes the general path: a
-    70-triangle strip (the JAX kernel's MXU branch) and the mitchell filter
-    render on the CPU; an integrator or adaptive sampling that the port has
-    not ported yet still raises, naming its ROADMAP item."""
+    """A 70-triangle strip takes the path kernel's medium branch (the JAX
+    kernel's MXU branch); what the path kernel does not cover, the mitchell
+    filter, takes the general path; both render on the CPU. An integrator or
+    adaptive sampling that the port has not ported yet still raises, naming
+    its ROADMAP item."""
     from optix_renderer_tpu_torch.render.render import render
 
-    # a 66-triangle strip (70 in all): the MXU branch of the JAX kernel, ROADMAP slice 2
+    # a 66-triangle strip (70 in all): the medium branch
     verts = [(x, 0.0, -1.0 + 0.1 * k) for k in range(34) for x in (-1.0, 1.0)]
     lines = [f"v {x} {y} {z}" for x, y, z in verts]
     lines += [f"f {2 * k + 1} {2 * k + 2} {2 * k + 4} {2 * k + 3}" for k in range(33)]
@@ -119,10 +149,12 @@ def test_render_refuses_what_the_kernel_does_not_cover(tmp_path):
     extra = '<shape type="obj"><string name="filename" value="strip.obj"/></shape>'
     scene, config, _ = build.load_scene(room_xml(tmp_path, LIGHTS["point"], extra=extra))
     assert config.n_tris == 70
-    assert mega.mega_eligible(scene, config) and not pathk.pathk_eligible(scene, config)
+    assert mega.mega_eligible(scene, config) and pathk.pathk_eligible(scene, config)
     small = dataclasses.replace(config, width=8, height=6, max_depth=3)
+    assert pathk.build_pathk_tables(scene, small)[1]["t_cnt"] > pathk.VPU_MAX_TRIS
     out = render(scene, small, sample_count=1, device="cpu")
-    assert out["weights"].shape == (6, 8) and (out["weights"] > 0).all()
+    # the path kernel's film: `weights` counts samples (the splat film sums filter weights)
+    assert out["weights"].shape == (6, 8) and (out["weights"] == 1.0).all()
     scene, config, _ = build.load_scene(room_xml(tmp_path, LIGHTS["point"]))
     assert pathk.pathk_eligible(scene, config)
     mitchell = dataclasses.replace(config, width=8, height=6, max_depth=3, rfilter="mitchell")
