@@ -32,20 +32,22 @@ Drives the port's main path (`optix_renderer_tpu_torch`, no JAX) once:
    path_mis, depth 16, 4 spp, and counts `isect_brute`'s launches;
 10. renders the golden configuration through the general path
    (`mega=False`) and holds it against tests/golden/cbox_{path_mis,path_mats}.exr;
-11. compares the path kernel's medium branch (65–8,192 triangles) with its
-   plain version on the GPU: config M's geometry (the tessellated Cornell
-   box at nu=40, nv=51, 8,012 triangles) at 160x120, box filter, depth 4,
-   4 spp, path_mis and path_mats, and a 70-triangle strip room with a glass
-   sphere and a spot light at 64x48; prints ptxas' registers and spills of
-   every kernel instance;
+11. holds the path kernel's medium branch (65–8,192 triangles, an LBVH walk
+   per bounce) against its plain version on the GPU, rows bit for bit:
+   config M's geometry (the tessellated Cornell box at nu=40, nv=51, 8,012
+   triangles) at 160x120, box filter, depth 4, 4 spp, path_mis and
+   path_mats, and a 70-triangle strip room with a glass
+   sphere and a spot light at 64x48, whose LBVH the table packing builds
+   (the scene builder makes none below 257 triangles); prints ptxas'
+   registers and spills of every kernel instance;
 12. renders config M at 800x600, path_mis, depth 16, gaussian filter through
    `render()` (1-spp warm-up, then 16 spp timed with the film on the host),
    counts the launches (the path kernel at least once, no intersection
    kernel: the scene did not take the scan path), times one
-   800x600 x 16-spp kernel launch and holds its first 300 rows against the
-   plain version on the same tables, and prints beside the sweep's bound
-   the bound of an LBVH walk (nodes and leaves per ray of config M's own
-   camera and bounce rays);
+   800x600 x 16-spp kernel launch and holds its first 300 rows bit for bit
+   against the plain version on the same tables, and
+   prints the bound of the LBVH walk (nodes and leaves per ray of config
+   M's own camera and bounce rays) beside the old sweep's;
 13. runs the CLI on the GPU on config M's XML at 160x120, 4 spp;
 14. runs the two probe entry points (`tools/probe_copy.py`,
    `tools/prof_parts.py`) with their launches counted, and compares each
@@ -91,7 +93,7 @@ RAY_BYTES = 48
 # rays per intersection launch of configs A and B (one per pixel)
 MAIN_RAYS = 800 * 600
 # rows of config M's 800x600 launch that phase 12 holds against the plain
-# version (0.3-0.4 s per row on an H100, 96-126 s for the 300)
+# version (its LBVH walk took 65-100 s for the 300 on an H100)
 M_REF_ROWS = 300
 
 
@@ -629,12 +631,26 @@ def main() -> None:
     from optix_renderer_tpu_torch.scene.presets import tessellated_cornell_xml
 
     for name, rep_ in ptxas_report(info.get("ptxas", "")).items():
-        if "pathk_kernel" in name or "probes" in name:
+        if "pathk" in name or "probes" in name:
             print(f"  ptxas {name}: {rep_}")
     medium_regs = {k: v for k, v in ptxas_report(info.get("ptxas", "")).items()
-                   if re.search(r"pathk_kernelILb[01]ELb1E", k)}
+                   if re.search(r"pathk_staged_kernelILb[01]E", k)}
     if len(medium_regs) != 2:
         raise AssertionError(f"ptxas reported {len(medium_regs)} medium instances, not 2")
+
+    def rows_equal(tables, meta, cfg, n_pix, n_spp, what):
+        """The medium kernel's rows against the plain version's, bit for
+        bit; prints the films' statistics, returns max |kernel − plain|."""
+        got = pathk.pathk_trace(tables, meta, cfg, n_pix=n_pix, spp0=0, n_spp=n_spp)
+        ref = pathk.pathk_trace_ref(tables, meta, cfg, n_pix=n_pix, spp0=0, n_spp=n_spp)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"{what}: rows differ from the plain version on "
+                                 f"{int((got != ref).any(0).sum())} pixels")
+        h = n_pix // cfg.width
+        compare(film(got, h, cfg.width), film(ref, h, cfg.width), n_spp, what)
+        return float((got - ref).abs().max())
+
     err_medium = 0.0
     for integ in ("path_mis", "path_mats"):
         scene_m, cfg_m, _ = make_tessellated_cornell(160, 120, 4, integ, nu=40, nv=51)
@@ -642,24 +658,20 @@ def main() -> None:
         tables, meta = pathk.build_pathk_tables(scene_m, cfg_m, dev)
         if not meta["t_cnt"] == 8012 > pathk.VPU_MAX_TRIS:
             raise AssertionError(f"config M is not the 8,012-triangle medium branch: {meta}")
-        got = pathk.pathk_trace(tables, meta, cfg_m, n_pix=160 * 120, spp0=0, n_spp=4)
-        ref = pathk.pathk_trace_ref(tables, meta, cfg_m, n_pix=160 * 120, spp0=0, n_spp=4)
-        torch.cuda.synchronize()
-        st = compare(film(got, 120, 160), film(ref, 120, 160), 4, f"config M 160x120 box {integ}")
-        err_medium = max(err_medium, st["max_abs_err"])
+        err_medium = max(err_medium, rows_equal(tables, meta, cfg_m, 160 * 120, 4,
+                                                f"config M 160x120 box {integ}"))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         scene_s, cfg_s, _ = load_scene(strip_room_xml(Path(tmp)))
     cfg_s = dataclasses.replace(cfg_s, max_depth=4, rfilter="box")
     tables, meta = pathk.build_pathk_tables(scene_s, cfg_s, dev)
-    if not (meta["t_cnt"] == 70 > pathk.VPU_MAX_TRIS and meta["n_sph"] == 1):
-        raise AssertionError(f"the strip room is not a 70-triangle medium scene: {meta}")
-    got = pathk.pathk_trace(tables, meta, cfg_s, n_pix=64 * 48, spp0=0, n_spp=4)
-    ref = pathk.pathk_trace_ref(tables, meta, cfg_s, n_pix=64 * 48, spp0=0, n_spp=4)
-    torch.cuda.synchronize()
-    err_medium = max(err_medium, compare(film(got, 48, 64), film(ref, 48, 64), 4,
-                                         "strip room 64x48 box path_mis")["max_abs_err"])
-    phase(11, "the medium branch agrees with its plain version (config M geometry 160x120, "
-              f"strip room 64x48); medium instances {medium_regs}")
+    if not (meta["t_cnt"] == 70 > pathk.VPU_MAX_TRIS and meta["n_sph"] == 1
+            and scene_s.geometry.bvh is None and meta["n_nodes"] == 35):
+        raise AssertionError(f"the strip room is not a 70-triangle medium scene whose LBVH the "
+                             f"table packing built: {meta}")
+    err_medium = max(err_medium, rows_equal(tables, meta, cfg_s, 64 * 48, 4,
+                                            "strip room 64x48 box path_mis"))
+    phase(11, "the medium branch equals its plain version bit for bit (config M geometry "
+              f"160x120, strip room 64x48); medium instances {medium_regs}")
 
     # ---- 12. config M through render(): the medium branch on the main path
     scene_m, cfg_m, _ = make_tessellated_cornell(800, 600, 16, "path_mis", nu=40, nv=51)
@@ -686,10 +698,11 @@ def main() -> None:
     n_pix = 800 * 600
     got = pathk.pathk_trace(tables, meta, cfg_m, n_pix=n_pix, spp0=0, n_spp=16)
     medium_ms = event_ms(lambda: pathk.pathk_trace(tables, meta, cfg_m, n_pix=n_pix, spp0=0,
-                                                   n_spp=16), reps=2)
+                                                   n_spp=16), reps=3)
     iters_m = float(got[10].double().sum())
-    medium_bound = bound(iters_m * (meta["t_cnt"] * OPS_MT + meta["n_sph"] * OPS_SPHERE + 5),
-                         16 * 4 * n_pix)
+    # the bound of the old algorithm, a sweep over all triangles per iteration
+    sweep_bound = bound(iters_m * (meta["t_cnt"] * OPS_MT + meta["n_sph"] * OPS_SPHERE + 5),
+                        16 * 4 * n_pix)
     # the plain version traces pixels [0, n_ref) of the same 800x600 tables;
     # every pixel runs on its own, so they must equal the full launch's
     n_ref = 800 * M_REF_ROWS
@@ -697,12 +710,16 @@ def main() -> None:
                                                                  spp0=0, n_spp=16))
     _, medium_ref_ms = timed(lambda: pathk.pathk_trace(tables, meta, cfg_m, n_pix=n_ref, spp0=0,
                                                        n_spp=16))
+    if not torch.equal(got[:, :n_ref], ref_m):
+        raise AssertionError(f"config M rows 0-{M_REF_ROWS - 1}: the kernel differs from the plain "
+                             f"version on {int((got[:, :n_ref] != ref_m).any(0).sum())} pixels")
     st_m = compare(film(got[:, :n_ref], M_REF_ROWS, 800), film(ref_m, M_REF_ROWS, 800), 16,
                    f"config M 800x600 gaussian depth 16, rows 0-{M_REF_ROWS - 1}")
-    err_medium = max(err_medium, st_m["max_abs_err"])
-    # The sweep's bound is that of a brute-force sweep, not of the function:
-    # an LBVH walk (which the port builds from 257 triangles) needs this many
-    # operations per closest hit, counted on config M's camera and bounce rays
+    err_medium = max(err_medium, float((got[:, :n_ref] - ref_m).abs().max()))
+    # the bound of the function as the kernel computes it: an LBVH walk per
+    # iteration, at the nodes and leaves per closest hit counted on config
+    # M's own camera and bounce rays (the shadow rays' any-hit walks are
+    # left out, so this is a lower bound)
     rng_m = np.random.default_rng(12)
     geom_m = scene_m.geometry.to(dev)
     packed_m, leaf_m = geom_m.bvh.packed, geom_m.bvh.leaf
@@ -714,12 +731,12 @@ def main() -> None:
     nodes_m, leaves_m = (float(x) for x in vis_m.double().mean(dim=1))
     walk_ray_ops = nodes_m * OPS_SLAB + leaves_m * 4 * (OPS_MT + 1) + OPS_RAY
     walk_bound = bound(iters_m * (walk_ray_ops + meta["n_sph"] * OPS_SPHERE + 5), 16 * 4 * n_pix)
-    print(f"  config M kernel, 800x600 x 16 spp: {medium_ms:.3f} ms (sweep bound "
-          f"{medium_bound[0]:.3f} ms, {medium_bound[1]}; {iters_m:.0f} iterations, "
-          f"{iters_m / n_pix / 16:.3f} per sample; LBVH-walk bound {walk_bound[0]:.4f} ms at "
-          f"{walk_ray_ops:.0f} operations per ray, {nodes_m:.1f} nodes and {leaves_m:.2f} leaves); "
-          f"rows 0-{M_REF_ROWS - 1}: kernel {medium_ref_ms:.3f} ms, plain version "
-          f"{medium_plain_ms:.3f} ms on {smi}")
+    print(f"  config M kernel, 800x600 x 16 spp: {medium_ms:.3f} ms; LBVH-walk bound "
+          f"{walk_bound[0]:.4f} ms ({walk_bound[1]}) at {walk_ray_ops:.0f} operations per ray, "
+          f"{nodes_m:.1f} nodes and {leaves_m:.2f} leaves; "
+          f"the old sweep's bound {sweep_bound[0]:.3f} ms; {iters_m:.0f} iterations, "
+          f"{iters_m / n_pix / 16:.3f} per sample; rows 0-{M_REF_ROWS - 1}: kernel "
+          f"{medium_ref_ms:.3f} ms, plain version {medium_plain_ms:.3f} ms, bit-equal, on {smi}")
     phase(12, f"config M: {800 * 600 * 16 / dt_m / 1e6:.4f} Mpaths/s, {launches_m} launches")
 
     # ---- 13. the CLI on config M
@@ -804,12 +821,12 @@ def main() -> None:
             launches_b["isect_brute"], err_brute, ms_brute, plain_brute, b_brute, rays=MAIN_RAYS,
             also_replaces="optix_renderer_tpu/ops/pallas/mt_kernel.py:140"),
         row("pathk_trace_medium", KERNEL_SOURCE, REPLACES, launches_m, err_medium, medium_ms,
-            medium_plain_ms, medium_bound, branch="MXU, optix_renderer_tpu/ops/pallas/pathk.py:622",
+            medium_plain_ms, walk_bound, branch="MXU, optix_renderer_tpu/ops/pallas/pathk.py:622",
+            kernel="pathk_staged_kernel<MIS> (LBVH walk, csrc/walk.cuh)",
             shape="800x600 x 16 spp", plain_shape=f"rows 0-{M_REF_ROWS - 1} of 800x600 x 16 spp",
             ms_at_plain_shape=medium_ref_ms, iterations=iters_m,
-            median_rel_err=st_m["median_rel_err"], walk_bound_ms=walk_bound[0],
-            walk_ops_per_ray=walk_ray_ops,
-            ptxas={k: v for k, v in medium_regs.items()}),
+            median_rel_err=st_m["median_rel_err"], walk_ops_per_ray=walk_ray_ops,
+            old_sweep_bound_ms=sweep_bound[0], ptxas=medium_regs),
         row("probe_copy", PROBES_SOURCE, "tools/probe_mosaic.py:50", launches_pc, err_pc, pc_ms,
             pc_plain_ms, pc_bound, wrapper_ms=pc_wrapper_ms),
         row("iter_cost", PROBES_SOURCE, "tools/prof_parts2.py:40", launches_ic, err_ic,

@@ -426,4 +426,30 @@ HD V3 bsdf_sample(const Bsdf& P, V3 wi, float u1, float u2, V3& weight, float& p
   return wo;
 }
 
+#ifdef __CUDACC__
+// ---------------------------------------------------------------------------
+// TMA bulk copies into shared memory: the shared-window address of a
+// pointer, and a wait on an mbarrier phase
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+#endif
+
 }  // namespace pk

@@ -2,34 +2,43 @@
 //
 // Replaces both branches of the TPU kernel
 // optix_renderer_tpu/ops/pallas/pathk.py: pathk_trace -> _pathk_kernel:
-// pathk_kernel<MIS, false> the small-scene (<= 64 triangles) VPU branch,
-// pathk_kernel<MIS, true> the medium (65-8,192 triangles) MXU branch
+// pathk_kernel<MIS> the small-scene (<= 64 triangles) VPU branch,
+// pathk_staged_kernel<MIS> the medium (65-8,192 triangles) MXU branch
 // (mega.closest_hit + the exact per-winner refine, occluded_mxu,
 // mega.nee_sample). The TPU kernel works on [8, 512] pixel blocks with SMEM
 // scalar packs, select-loops and, in the MXU branch, Moller-Trumbore as a
 // [4*256,16]@[16,512] matmul with one-hot attribute fetches, because Mosaic
 // cannot gather per lane; here each thread owns one pixel and runs that
 // pixel's loop of regenerating bounces with the carried state of the TPU
-// kernel's `body`, reading the scene tables through ordinary loads that all
-// threads of a warp share. Both branches sweep v0|e1|e2 of the [T, 48]
-// triangle rows (1.5 MB at 8,012 triangles, which stays in the 50 MB L2;
-// a compact [T, 12] copy read by three 16-byte loads measured 1-2 % slower
-// on an H100) and read the winner's row once per bounce; they differ only
-// in NEE's emissive-triangle pick (nee_sample<MEDIUM>). The closest hit
-// and the shadow ray's any hit share
-// one sweep in triangle order (strict < against the running best: the
-// lowest-index minimum), and the any hit stops testing once the ray is
-// occluded.
+// kernel's `body`, reading the scene tables through ordinary loads.
 //
-// What bounds it on the card: FP32 ALU work (Moller-Trumbore over every
-// triangle twice per bounce, BSDF and NEE math) and warp divergence between
-// pixels whose paths have different lengths; it does no tensor-core work
-// and moves almost no memory (16 floats out per pixel). Regeneration keeps
-// every thread busy until its own n_spp samples are done, so a warp idles
-// only in its tail. This first version is the simple, right one: no
-// shared-memory tiles of the triangles yet. It is built without FMA
-// contraction (ops/cuda/_build.py), so its rows equal the plain torch
-// version's bit for bit.
+// How a bounce finds its hits. The small branch sweeps v0|e1|e2 of the
+// [T, 48] triangle rows in triangle order, the closest hit and the pending
+// shadow ray's any hit in one pass (strict < against the running best: the
+// lowest-index minimum). The medium branch walks the scene's LBVH instead
+// (csrc/walk.cuh, the walk of isect_bvh): a closest-hit walk that breaks
+// exact ties in t by the smaller id, so its winner is the sweep's, then an
+// any-hit walk of the shadow segment when one is pending. Both read the
+// winner's [T, 48] row once per bounce, and the branches also differ in
+// NEE's emissive-triangle pick (nee_sample<MEDIUM>).
+//
+// What bounds it on the card. The small branch: FP32 ALU work
+// (Moller-Trumbore over every triangle twice per bounce, BSDF and NEE math)
+// and warp divergence between pixels whose paths have different lengths.
+// The medium branch: the walks' dependent loads (one 32-byte node, then for
+// a leaf whose box is hit one 160-byte leaf row, before the next step is
+// known) and the divergence of incoherent bounce rays. So its design
+// (pathk_staged_kernel) keeps the node table (at most 4,095 nodes, 131 KB)
+// in shared memory, copied once per block by a TMA bulk copy, leaves the
+// leaves on __ldg, runs one persistent 512-thread block per SM (128
+// registers: the occupancy that 128 registers allow anyway), and hands out
+// pixels 32 at a time per warp from a counter, so no SM idles while pixels
+// remain (27 % faster on an H100 than one thread per pixel with the nodes
+// on __ldg, PERF.md). Neither branch moves much memory (16 floats out per
+// pixel) or uses the tensor cores.
+// Regeneration keeps every thread busy until its own n_spp samples are
+// done. Built without FMA contraction (ops/cuda/_build.py), so the rows
+// equal the plain torch version's bit for bit.
 //
 // Contract (same as ops/cuda/pathk.py: pathk_trace_ref):
 //   out [16, n_pix] float32: rows 0:3 sum L, 3 samples done, 4:7 sum albedo,
@@ -39,6 +48,7 @@
 // the TPU kernel's order: seed tea(pix, (spp0 + k) ^ seed), jitter 2 +
 // aperture 2, RR 1, NEE pick 1 + 3 (MIS only), BSDF 2.
 #include "mega.cuh"
+#include "walk.cuh"
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
@@ -56,7 +66,9 @@ struct Tables {
   const float* sph;  // [n_sph_rows, 32]
   const float* tri;  // [t_cnt, 48]
   const float* et;   // [te_pad, 24] emissive triangles, te_cnt of them real
-  int n_sph_rows, t_cnt, te_cnt, te_pad, n_emitters;
+  const float* nodes;  // [n_nodes, 8] packed LBVH (medium branch)
+  const float* leaf;   // [n_leaves, 40] its leaves: v0 | e1 | e2 | id per slot
+  int n_sph_rows, t_cnt, te_cnt, te_pad, n_emitters, n_nodes;
   float n_lights;
   int n_pix, width, n_spp, max_depth, rfilter, use_dof;
   uint32_t spp0, seed;
@@ -270,7 +282,12 @@ HD Bsdf bsdf_from_sphere(const float* s) {
   return P;
 }
 
+HD isect::RayIn ray_in(V3 o, V3 d, float mint) {
+  return isect::RayIn{o.x, o.y, o.z, d.x, d.y, d.z, mint};
+}
+
 // The whole per-pixel loop; writes the pixel's 16 output values to res.
+// MEDIUM: T.nodes points into shared memory (pathk_staged_kernel).
 template <bool MIS, bool MEDIUM>
 HD void trace_pixel(const Tables& T, uint32_t pix, float res[16]) {
   const float px = (float)(pix % (uint32_t)T.width);
@@ -297,23 +314,43 @@ HD void trace_pixel(const Tables& T, uint32_t pix, float res[16]) {
     const bool was = active;
     const bool first = depth < 0.5f;
 
-    // ---- 1. fused sweep: closest hit (current ray) + any hit (shadow ray)
+    // ---- 1. closest hit (current ray) + any hit (shadow ray)
     float t_tri = ray.maxt, u = 0.0f, v = 0.0f;
     int best_j = -1;
     bool occ = false;
-    for (int j = 0; j < T.t_cnt; ++j) {
-      const float* tr = T.tri + j * TR_COLS;
-      const V3 v0 = load3(tr), e1 = load3(tr + 3), e2 = load3(tr + 6);
-      float uu, vv, tt;
-      if (mt_test(v0, e1, e2, ray.o, ray.d, uu, vv, tt) && tt >= ray.mint && tt < t_tri) {
-        t_tri = tt;
-        u = uu;
-        v = vv;
-        best_j = j;
+    if (MEDIUM) {
+      // the LBVH walk, taking the lowest-index minimum of t as the sweep
+      // does; then the pending shadow ray's any hit
+      int n_visit, n_leaf;
+      isect::Best b = {ray.maxt, 0.0f, 0.0f, -1};
+      isect::walk<false, true, true>(T.nodes, T.n_nodes, T.leaf,
+                                             ray_in(ray.o, ray.d, ray.mint), b, n_visit, n_leaf);
+      t_tri = b.t;
+      u = b.u;
+      v = b.v;
+      best_j = b.id;
+      if (sh_pend) {
+        isect::Best s = {sh_dist, 0.0f, 0.0f, -1};
+        isect::walk<true, false, true>(T.nodes, T.n_nodes, T.leaf,
+                                               ray_in(sh_o, sh_d, EPS), s, n_visit, n_leaf);
+        occ = s.id >= 0;
       }
-      if (sh_pend && !occ && mt_test(v0, e1, e2, sh_o, sh_d, uu, vv, tt) && tt >= EPS &&
-          tt < sh_dist)
-        occ = true;
+    } else {
+      // fused sweep in triangle order (strict <: the lowest-index minimum)
+      for (int j = 0; j < T.t_cnt; ++j) {
+        const float* tr = T.tri + j * TR_COLS;
+        const V3 v0 = load3(tr), e1 = load3(tr + 3), e2 = load3(tr + 6);
+        float uu, vv, tt;
+        if (mt_test(v0, e1, e2, ray.o, ray.d, uu, vv, tt) && tt >= ray.mint && tt < t_tri) {
+          t_tri = tt;
+          u = uu;
+          v = vv;
+          best_j = j;
+        }
+        if (sh_pend && !occ && mt_test(v0, e1, e2, sh_o, sh_d, uu, vv, tt) && tt >= EPS &&
+            tt < sh_dist)
+          occ = true;
+      }
     }
     const bool tri_valid = best_j >= 0;
     if (sh_pend && !occ) {
@@ -498,32 +535,110 @@ HD void trace_pixel(const Tables& T, uint32_t pix, float res[16]) {
 }
 
 #ifdef __CUDACC__
-template <bool MIS, bool MEDIUM>
+// ---- the small branch: one thread per pixel
+template <bool MIS>
 __global__ void __launch_bounds__(128) pathk_kernel(Tables T, float* __restrict__ out) {
   const uint32_t pix = blockIdx.x * blockDim.x + threadIdx.x;
   if (pix >= (uint32_t)T.n_pix) return;
   float res[16];
-  trace_pixel<MIS, MEDIUM>(T, pix, res);
+  trace_pixel<MIS, false>(T, pix, res);
   for (int r = 0; r < 16; ++r) out[(size_t)r * T.n_pix + pix] = res[r];
 }
 
-template <bool MIS, bool MEDIUM>
+template <bool MIS>
 void launch(const Tables& T, float* out, cudaStream_t s) {
   const int threads = 128;
   const int blocks = (T.n_pix + threads - 1) / threads;
-  pathk_kernel<MIS, MEDIUM><<<blocks, threads, 0, s>>>(T, out);
+  pathk_kernel<MIS><<<blocks, threads, 0, s>>>(T, out);
+}
+
+// ---- the medium branch: persistent blocks, each copying the node table
+// into shared memory once (a TMA bulk copy on an mbarrier), then taking
+// pixels 32 at a time per warp from a counter
+constexpr int STAGED_THREADS = 512;
+constexpr uint32_t STAGED_CHUNK = 32768;  // bytes per bulk copy
+constexpr int MAX_STAGED_BYTES = 227 * 1024;
+
+template <bool MIS>
+__global__ void __launch_bounds__(STAGED_THREADS, 1)
+    pathk_staged_kernel(Tables T, float* __restrict__ out, uint32_t* __restrict__ next_pix) {
+  extern __shared__ __align__(128) float s_nodes[];
+  __shared__ alignas(8) uint64_t bar;
+  const uint32_t bar_a = smem_u32(&bar);
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar_a), "r"(1) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const uint32_t bytes = (uint32_t)T.n_nodes * isect::NODE_COLS * sizeof(float);
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar_a),
+                 "r"(bytes)
+                 : "memory");
+    for (uint32_t off = 0; off < bytes; off += STAGED_CHUNK) {
+      const uint32_t n = min(STAGED_CHUNK, bytes - off);
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+          "[%3];" ::"r"(smem_u32(s_nodes) + off),
+          "l"(reinterpret_cast<const char*>(T.nodes) + off), "r"(n), "r"(bar_a)
+          : "memory");
+    }
+  }
+  mbar_wait(bar_a, 0);
+  Tables S = T;
+  S.nodes = s_nodes;
+  // each warp takes the next 32 pixels from the launch's counter, so every
+  // SM keeps working while pixels remain (a fixed stride leaves the blocks
+  // with one pixel more per thread running alone at the end)
+  const uint32_t lane = threadIdx.x & 31u;
+  for (;;) {
+    uint32_t base = 0;
+    if (lane == 0) base = atomicAdd(next_pix, 32u);
+    base = __shfl_sync(0xffffffffu, base, 0);
+    if (base >= (uint32_t)T.n_pix) break;
+    const uint32_t pix = base + lane;
+    if (pix < (uint32_t)T.n_pix) {
+      float res[16];
+      trace_pixel<MIS, true>(S, pix, res);
+      for (int r = 0; r < 16; ++r) out[(size_t)r * T.n_pix + pix] = res[r];
+    }
+  }
+}
+
+template <bool MIS>
+cudaError_t launch_staged(const Tables& T, float* out, uint32_t* next_pix, cudaStream_t s) {
+  const int bytes = T.n_nodes * isect::NODE_COLS * (int)sizeof(float);
+  if (T.n_nodes < 1 || bytes > MAX_STAGED_BYTES || next_pix == nullptr)
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(pathk_staged_kernel<MIS>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  int dev = 0, n_sm = 0, per_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pathk_staged_kernel<MIS>,
+                                                      STAGED_THREADS, bytes);
+  if (e != cudaSuccess) return e;
+  const int need = (T.n_pix + STAGED_THREADS - 1) / STAGED_THREADS;
+  const int fit = n_sm * (per_sm > 1 ? per_sm : 1);
+  const int blocks = need < fit ? need : fit;
+  pathk_staged_kernel<MIS><<<blocks, STAGED_THREADS, bytes, s>>>(T, out, next_pix);
+  return cudaSuccess;
 }
 #endif
 
 }  // namespace pk
 
 #ifdef __CUDACC__
+// next_pix (medium branch only): one uint32 that holds 0 at launch, the
+// counter from which the warps take their pixels
 extern "C" int pathk_trace_launch(float* out, const float* sf, const float* em,
                                   const float* env, const float* sph, int n_sph_rows,
-                                  const float* tri, int t_cnt,
-                                  const float* et, int te_cnt, int te_pad, int n_pix, int width,
-                                  int spp0, int seed, int n_spp, int max_depth, int n_emitters,
-                                  int n_lights, int mis, int rfilter, int use_dof,
+                                  const float* tri, int t_cnt, const float* nodes, int n_nodes,
+                                  const float* leaf, const float* et, int te_cnt, int te_pad,
+                                  int n_pix, int width, int spp0, int seed, int n_spp,
+                                  int max_depth, int n_emitters, int n_lights, int mis,
+                                  int rfilter, int use_dof, uint32_t* next_pix,
                                   void* stream) {
   pk::Tables T;
   T.sf = sf;
@@ -532,11 +647,14 @@ extern "C" int pathk_trace_launch(float* out, const float* sf, const float* em,
   T.sph = sph;
   T.tri = tri;
   T.et = et;
+  T.nodes = nodes;
+  T.leaf = leaf;
   T.n_sph_rows = n_sph_rows;
   T.t_cnt = t_cnt;
   T.te_cnt = te_cnt;
   T.te_pad = te_pad;
   T.n_emitters = n_emitters;
+  T.n_nodes = n_nodes;
   T.n_lights = (float)n_lights;
   T.n_pix = n_pix;
   T.width = width;
@@ -549,14 +667,15 @@ extern "C" int pathk_trace_launch(float* out, const float* sf, const float* em,
   cudaStream_t s = (cudaStream_t)stream;
   const bool medium = t_cnt > pk::VPU_MAX_TRIS;
   if (n_pix > 0) {
-    if (mis && medium)
-      pk::launch<true, true>(T, out, s);
+    cudaError_t e = cudaSuccess;
+    if (medium)
+      e = mis ? pk::launch_staged<true>(T, out, next_pix, s)
+              : pk::launch_staged<false>(T, out, next_pix, s);
     else if (mis)
-      pk::launch<true, false>(T, out, s);
-    else if (medium)
-      pk::launch<false, true>(T, out, s);
+      pk::launch<true>(T, out, s);
     else
-      pk::launch<false, false>(T, out, s);
+      pk::launch<false>(T, out, s);
+    if (e != cudaSuccess) return (int)e;
   }
   return (int)cudaGetLastError();
 }

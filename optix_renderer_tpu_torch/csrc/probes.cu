@@ -35,24 +35,8 @@ constexpr int IC_LANES = 4096, IC_THREADS = 1024, IC_LPT = IC_LANES / IC_THREADS
 constexpr int IC_TRIS = 14;
 enum { MODE_EMPTY = 0, MODE_REDUCE = 1, MODE_MADD100 = 2, MODE_ISECT = 3 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
+using pk::mbar_wait;
+using pk::smem_u32;
 
 // x [C, CS, W] float32, sel [C] int32 -> out [8, W], every row the sum over
 // the flagged clusters c (c % 2 == 1) of the column sums of slab sel[c]

@@ -15,8 +15,10 @@ cursor and no stack. The walk reads two packed tables:
 
 `traverse_walk_ref` is the plain torch version of the walk
 (`_traverse_walk`, bvh.py:396-471); `ops/cuda/isect.py` holds the CUDA
-kernel with the same contract, and `replay_tri` recomputes (t, u, v) of the
-winner from the live triangle arrays (the detach-and-replay contract).
+kernel with the same contract (the walk itself is `csrc/walk.cuh`, which
+the path kernel's medium branch also runs, `ops/cuda/pathk.py`), and
+`replay_tri` recomputes (t, u, v) of the winner from the live triangle
+arrays (the detach-and-replay contract).
 """
 
 from __future__ import annotations
@@ -171,6 +173,19 @@ def build_bvh_tables(v0, v1, v2) -> tuple[np.ndarray, np.ndarray]:
             _pack_tri_leaves(prim, v0, v1 - v0, v2 - v0, LEAF_SIZE))
 
 
+def build_bvh_tables_from_edges(v0, e1, e2) -> tuple[np.ndarray, np.ndarray]:
+    """`build_bvh_tables` for triangles held as v0 | e1 | e2.
+
+    The boxes and Morton codes come from the corners v0 + e1 and v0 + e2;
+    the leaf slots carry e1 and e2 as given, so they equal the tables that
+    were packed from them bit for bit (recomputing (v0 + e1) − v0 would
+    round)."""
+    v0, e1, e2 = (np.asarray(x, np.float32) for x in (v0, e1, e2))
+    node_min, node_max, skip, first, prim = build_lbvh_numpy(v0, v0 + e1, v0 + e2)
+    return (_pack_nodes(node_min, node_max, skip, first),
+            _pack_tri_leaves(prim, v0, e1, e2, LEAF_SIZE))
+
+
 # ---------------------------------------------------------------------------
 # per-lane arithmetic shared by the walk, the sweep and the replay
 # ---------------------------------------------------------------------------
@@ -224,8 +239,8 @@ def _slab(o, inv_d, bmin, bmax, tmin, tmax):
     return (near <= far) & (far >= tmin) & (near <= tmax)
 
 
-def traverse_walk_ref(packed, leaf, o, d, mint, cutoff, any_hit: bool = False,
-                      with_visits: bool = False):
+def traverse_walk_ref(packed, leaf, o, d, mint, cutoff, any_hit=False,
+                      with_visits: bool = False, lowest_id: bool = False):
     """Plain torch stackless walk of the packed LBVH (bvh.py:396-471).
 
     o, d: [N,3]; mint, cutoff: [N] float32 (cutoff is the initial far clip).
@@ -233,9 +248,11 @@ def traverse_walk_ref(packed, leaf, o, d, mint, cutoff, any_hit: bool = False,
     `with_visits`, [2, N] int32: the nodes visited and the leaves tested per
     ray. Each step reads one node row; a leaf
     whose box is hit tests its four slots in order with strict `<` against
-    the running best (the argmin-first tie-break). With `any_hit` a ray
-    stops at its first confirmed hit. Only the rays still walking are
-    carried from one step to the next.
+    the running best (the argmin-first tie-break), or with `lowest_id` also
+    takes an equal t from a smaller triangle id (a sweep's lowest-index
+    minimum: the path kernel's medium branch). With `any_hit` (a bool, or a
+    bool [N] per ray) a ray stops at its first confirmed hit. Only the rays
+    still walking are carried from one step to the next.
     """
     n = o.shape[0]
     dev = o.device
@@ -253,9 +270,12 @@ def traverse_walk_ref(packed, leaf, o, d, mint, cutoff, any_hit: bool = False,
     node = torch.zeros(n, dtype=torch.int64, device=dev)
     best_t, best_u, best_v = cutoff.clone(), out_u.clone(), out_v.clone()
     best_id = out_id.clone()
+    stop = (any_hit.to(device=dev, dtype=torch.bool) if isinstance(any_hit, torch.Tensor)
+            else torch.full((n,), bool(any_hit), dtype=torch.bool, device=dev))
     found = torch.zeros(n, dtype=torch.bool, device=dev)
     while lane.numel():
-        visits[0, lane] += 1
+        if with_visits:
+            visits[0, lane] += 1
         row = packed[node]
         skip, fi = links[node, 0].long(), links[node, 1].long()
         hit_box = _slab(ro, inv_d, row[:, 0:3], row[:, 3:6], rmint, best_t)
@@ -263,25 +283,30 @@ def traverse_walk_ref(packed, leaf, o, d, mint, cutoff, any_hit: bool = False,
         do_leaf = hit_box & is_leaf
         if bool(do_leaf.any()):
             k = do_leaf.nonzero().squeeze(1)
-            visits[1, lane[k]] += 1
+            if with_visits:
+                visits[1, lane[k]] += 1
             slots = leaf[fi[k] // LEAF_SIZE].reshape(-1, LEAF_SIZE, 10)
             pids = slots[..., 9].contiguous().view(torch.int32)
-            ko, kd, kmint = ro[k], rd[k], rmint[k]
+            # the leaf's slots in one broadcast test ([k, 1, 3] rays against
+            # [k, LEAF_SIZE, 3] slots: the same arithmetic per pair), then
+            # taken in slot order
+            t, u, v, h = mt_lanes(ro[k, None], rd[k, None], slots[..., 0:3], slots[..., 3:6],
+                                  slots[..., 6:9])
+            ok = h & (pids >= 0) & (t >= rmint[k, None])
             bt, bu, bv, bi = best_t[k], best_u[k], best_v[k], best_id[k]
             hit_any = found[k]
             for j in range(LEAF_SIZE):
-                t, u, v, h = mt_lanes(ko, kd, slots[:, j, 0:3], slots[:, j, 3:6],
-                                      slots[:, j, 6:9])
-                better = h & (pids[:, j] >= 0) & (t >= kmint) & (t < bt)
-                bt = torch.where(better, t, bt)
-                bu = torch.where(better, u, bu)
-                bv = torch.where(better, v, bv)
-                bi = torch.where(better, pids[:, j], bi)
+                tj, pj = t[:, j], pids[:, j]
+                closer = (tj < bt) | ((tj == bt) & (pj < bi)) if lowest_id else tj < bt
+                better = ok[:, j] & closer
+                bt = torch.where(better, tj, bt)
+                bu = torch.where(better, u[:, j], bu)
+                bv = torch.where(better, v[:, j], bv)
+                bi = torch.where(better, pj, bi)
                 hit_any = hit_any | better
             best_t[k], best_u[k], best_v[k], best_id[k], found[k] = bt, bu, bv, bi, hit_any
         nxt = torch.where(hit_box & ~is_leaf, node + 1, skip)
-        if any_hit:
-            nxt = torch.where(found, n_nodes, nxt)
+        nxt = torch.where(found & stop, n_nodes, nxt)
         done = nxt >= n_nodes
         if bool(done.any()):
             dl = lane[done]
@@ -291,7 +316,7 @@ def traverse_walk_ref(packed, leaf, o, d, mint, cutoff, any_hit: bool = False,
             lane, node = lane[keep], nxt[keep]
             ro, rd, rmint, inv_d = ro[keep], rd[keep], rmint[keep], inv_d[keep]
             best_t, best_u, best_v = best_t[keep], best_u[keep], best_v[keep]
-            best_id, found = best_id[keep], found[keep]
+            best_id, found, stop = best_id[keep], found[keep], stop[keep]
         else:
             node = nxt
     if with_visits:

@@ -22,7 +22,7 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("mega.cuh", "pathk.cu", "isect.cu", "probes.cu")
+SOURCES = ("mega.cuh", "walk.cuh", "pathk.cu", "isect.cu", "probes.cu")
 UNITS = tuple(name for name in SOURCES if name.endswith(".cu"))
 # no --use_fast_math: the samplers go through logf/sinf/cosf and must keep
 # full-precision results to track the plain version per pixel.
@@ -95,10 +95,12 @@ def load() -> ctypes.CDLL:
             vp, vp, vp, vp,  # out, scal_f, em_rows, env
             vp, i,  # sph, sphere rows
             vp, i,  # tri, t_cnt
+            vp, i, vp,  # nodes, n_nodes, leaf
             vp, i, i,  # et, te_cnt, te_pad
             i, i, i, i, i, i,  # n_pix, width, spp0, seed, n_spp, max_depth
             i, i,  # n_emitters, n_lights
             i, i, i,  # mis, rfilter, use_dof
+            vp,  # next_pix: the medium kernel's uint32 counter, 0 at launch (or null)
             vp,  # stream
         ]
         lib.pathk_trace_launch.restype = i

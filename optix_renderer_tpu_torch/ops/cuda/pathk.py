@@ -5,9 +5,9 @@ Counterpart of `optix_renderer_tpu/ops/pallas/pathk.py` (`pathk_trace` →
 triangles) and the medium branch (up to MAX_MXU_TRIS, the JAX kernel's
 MXU branch). Each pixel seeds pcg32 from `tea(pix, (spp0 + k) ^ seed)` for
 its sample k, makes a
-camera ray with filter-importance-sampled jitter, and traces bounces; every
-sweep over the triangles finds the closest hit of the current ray and also
-tests the shadow ray queued by the previous bounce. NEE uses the balance
+camera ray with filter-importance-sampled jitter, and traces bounces; each
+bounce finds the closest hit of the current ray and the any hit of the
+shadow ray queued by the previous bounce. NEE uses the balance
 heuristic (`path_mis`) or is off (`path_mats`), then Russian roulette. When
 a path ends the pixel regenerates its next sample until `n_spp` are done,
 and it stops once it has no active path and no pending shadow ray.
@@ -16,22 +16,25 @@ Two versions with one contract, both returning float32 `[16, n_pix]`:
 
 * `pathk_trace_ref` — plain torch, vectorised over pixels with per-lane
   masks. It is what `pathk_trace` runs for CPU tensors.
-* the CUDA kernel `csrc/pathk.cu` (one thread per pixel), which
+* the CUDA kernels of `csrc/pathk.cu` (one thread per pixel), which
   `pathk_trace` launches for CUDA tensors; there is no fallback between
   the two.
 
 Output rows: 0:3 ΣL rgb, 3 samples done, 4:7 Σ first-hit albedo,
 7:10 Σ first-hit shading normal, 10 loop iterations, 11:16 zero.
 
-Both branches sweep the triangle rows the same way: the winner is the
-lowest-index minimum of the Möller–Trumbore t, and the kernel reads its
-row once. The JAX MXU branch picks its winner on the matmul form of t and
-then refines it with Möller–Trumbore, so on near-ties (≤ 0.1 % of the
-rays) the two can pick different triangles. The branches (medium: `t_cnt > VPU_MAX_TRIS`)
-differ only in the emissive-triangle pick of NEE (`mega.py: nee_sample`,
-923-925): the medium branch scans the whole padded table (`te_pad` rows),
-falls back to row `te_pad − 1` when no row qualifies, and has no `found`
-term in its area-sample validity.
+The small branch sweeps the triangle rows; the medium branch (`t_cnt >
+VPU_MAX_TRIS`) walks the scene's LBVH (`ops/bvh.py`, the `packed` and
+`leaf` tables; `csrc/walk.cuh`) for the closest hit and for the shadow
+ray's any hit. Both take as winner the lowest-index minimum of the
+Möller–Trumbore t (the walk breaks an exact tie in t by the smaller id),
+and the kernel reads the winner's row once. The JAX MXU branch picks its
+winner on the matmul form of t and then refines it with Möller–Trumbore, so
+on near-ties (≤ 0.1 % of the rays) the two can pick different triangles.
+The branches also differ in the emissive-triangle pick of NEE
+(`mega.py: nee_sample`, 923-925): the medium branch scans the whole padded
+table (`te_pad` rows), falls back to row `te_pad − 1` when no row
+qualifies, and has no `found` term in its area-sample validity.
 
 Contract notes:
 
@@ -58,6 +61,7 @@ import numpy as np
 import torch
 
 from optix_renderer_tpu_torch.core import rng
+from optix_renderer_tpu_torch.ops import bvh
 from optix_renderer_tpu_torch.ops.camera import sample_to_camera_matrix
 from optix_renderer_tpu_torch.ops.cuda import isect, mega
 from optix_renderer_tpu_torch.ops.cuda.mega import (
@@ -133,7 +137,12 @@ def build_pathk_tables(scene, config, device="cpu"):
 
     Tables: `tri` [max(T,1), 48], `et` [TEpad, 24] (the JAX `etc`; the
     small branch reads its first `te_cnt` rows, the JAX `et_smem`),
-    `em_rows` [E, 24], `env` [4], `sph` [max(Ns,1), 32], `scal_f` [40].
+    `em_rows` [E, 24], `env` [4], `sph` [max(Ns,1), 32], `scal_f` [40],
+    and the medium branch's LBVH, `packed` [Nn, 8] and `leaf`
+    [n_leaves, 40] (`ops/bvh.py`; one zero row each in the small branch).
+    The LBVH is the scene's own when it has one; else it is built here from
+    v0 | e1 | e2, so that every leaf slot holds its row's columns 0:9 bit
+    for bit.
     """
     npy = lambda t: t.detach().cpu().numpy()
     g = scene.geometry
@@ -180,8 +189,13 @@ def build_pathk_tables(scene, config, device="cpu"):
     sf[36] = 1.0 / config.width
     sf[37] = 1.0 / config.height
 
+    if t_cnt > VPU_MAX_TRIS:
+        packed, leaf = _walk_tables(g, tri[:t_cnt])
+    else:
+        packed, leaf = np.zeros((1, 8), np.float32), np.zeros((1, 40), np.float32)
+
     host = {"tri": tri, "et": mt["et"], "em_rows": mt["em_rows"], "env": mt["env"],
-            "sph": mt["sph"], "scal_f": sf}
+            "sph": mt["sph"], "scal_f": sf, "packed": packed, "leaf": leaf}
     tables = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in host.items()}
     meta = {
         "t_cnt": t_cnt,
@@ -190,8 +204,28 @@ def build_pathk_tables(scene, config, device="cpu"):
         "use_dof": float(sf[32]) > 1e-4,
         "n_sph": int(g.sph_center.shape[0]),
         "n_emitters": int(mt["em_rows"].shape[0]),
+        "n_nodes": int(packed.shape[0]),
     }
     return tables, meta
+
+
+def _walk_tables(g, rows):
+    """(packed, leaf) of the medium branch: the scene's LBVH or one built
+    from the rows' v0 | e1 | e2. Raises unless every leaf slot's v0 | e1 |
+    e2 equals its triangle's row bit for bit (the walk's t, u, v would
+    otherwise differ from the row's)."""
+    if g.bvh is not None:
+        packed, leaf = (x.detach().cpu().numpy() for x in (g.bvh.packed, g.bvh.leaf))
+    else:
+        packed, leaf = bvh.build_bvh_tables_from_edges(rows[:, 0:3], rows[:, 3:6], rows[:, 6:9])
+    slots = leaf.reshape(-1, bvh.LEAF_SIZE, 10)
+    ids = slots[..., 9].copy().view(np.int32)
+    real = ids >= 0
+    if (np.sort(ids[real]) != np.arange(rows.shape[0])).any():
+        raise ValueError("the LBVH's leaves do not hold every triangle once")
+    if (slots[real][:, 0:9].view(np.int32) != rows[ids[real], 0:9].view(np.int32)).any():
+        raise ValueError("the LBVH's leaf slots differ from the triangle rows' v0 | e1 | e2")
+    return np.ascontiguousarray(packed), np.ascontiguousarray(leaf)
 
 
 # ---------------------------------------------------------------------------
@@ -276,7 +310,8 @@ def _camera_ray(sf, px, py, st, *, rfilter, use_dof):
 
 
 def _isect(tri, t_cnt, o, d, mint, maxt, so, sd, s_maxt):
-    """Fused sweep: closest hit of (o,d) in [mint, maxt) + any hit of the
+    """Fused sweep of the small branch (and the function the medium branch's
+    walk computes): closest hit of (o,d) in [mint, maxt) + any hit of the
     shadow segment (so, sd, [EPS, s_maxt)), as chunked [N, chunk] sweeps
     over v0 | e1 | e2 of the triangle rows (`isect.mt_sweep_ref`,
     `isect.mt_any_ref`). The winner is the lowest-index minimum of t, as in
@@ -291,6 +326,35 @@ def _isect(tri, t_cnt, o, d, mint, maxt, so, sd, s_maxt):
                             torch.full_like(s_maxt, EPS), s_maxt, v0, e1, e2)
     hit = best_j >= 0
     attrs = where(hit[:, None], tri[best_j.clamp(min=0).long()], 0.0)
+    return best_t, best_u, best_v, hit, attrs, occl
+
+
+def _walk_isect(tri, packed, leaf, o, d, mint, maxt, so, sd, s_maxt, live, sh_pend):
+    """The medium branch's intersections, as its kernel finds them: the LBVH
+    walk's closest hit of (o, d) in [mint, maxt) on the `live` lanes, with
+    exact ties in t going to the smaller id (the lowest-index minimum, as
+    `_isect` takes it), and the any hit of the shadow segment (so, sd,
+    [EPS, s_maxt)) on the lanes with one pending (`sh_pend`). Other lanes
+    get a miss. Both walks run as one `traverse_walk_ref` call over the
+    closest-hit rays followed by the shadow rays. Returns what `_isect`
+    returns."""
+    kc, ks = live.nonzero().squeeze(1), sh_pend.nonzero().squeeze(1)
+    nc = kc.numel()
+    best_id = torch.full_like(mint, -1, dtype=torch.int32)
+    best_t, best_u, best_v = maxt.clone(), torch.zeros_like(mint), torch.zeros_like(mint)
+    occl = torch.zeros_like(live)
+    if nc + ks.numel():
+        ids, t, u, v = bvh.traverse_walk_ref(
+            packed, leaf,
+            torch.cat([torch.stack(o, -1)[kc], torch.stack(so, -1)[ks]]),
+            torch.cat([torch.stack(d, -1)[kc], torch.stack(sd, -1)[ks]]),
+            torch.cat([mint[kc], torch.full_like(s_maxt[ks], EPS)]),
+            torch.cat([maxt[kc], s_maxt[ks]]),
+            any_hit=torch.arange(nc + ks.numel(), device=mint.device) >= nc, lowest_id=True)
+        best_id[kc], best_t[kc], best_u[kc], best_v[kc] = ids[:nc], t[:nc], u[:nc], v[:nc]
+        occl[ks] = ids[nc:] >= 0
+    hit = best_id >= 0
+    attrs = where(hit[:, None], tri[best_id.clamp(min=0).long()], 0.0)
     return best_t, best_u, best_v, hit, attrs, occl
 
 
@@ -454,9 +518,15 @@ def pathk_trace_ref(tables, meta, config, *, n_pix, spp0, n_spp):
         was = active
         first = depth < 0.5
 
-        # ---- 1. fused sweep: closest hit (current ray) + any hit (shadow ray)
-        t_tri, u, v, tri_valid, A, occ_tri = _isect(
-            tri, t_cnt, o, d, mint, maxt, sh_o, sh_d, sh_dist)
+        # ---- 1. closest hit (current ray) + any hit (shadow ray): the LBVH
+        # walk in the medium branch, the fused sweep in the small one
+        if medium:
+            t_tri, u, v, tri_valid, A, occ_tri = _walk_isect(
+                tri, tables["packed"], tables["leaf"], o, d, mint, maxt, sh_o, sh_d, sh_dist,
+                live, sh_pend)
+        else:
+            t_tri, u, v, tri_valid, A, occ_tri = _isect(
+                tri, t_cnt, o, d, mint, maxt, sh_o, sh_d, sh_dist)
         P = {"btype": A[:, 21], "alpha": A[:, 22], "int_ior": A[:, 23],
              "ext_ior": A[:, 24], "ks": A[:, 25],
              "kd": (A[:, 26], A[:, 27], A[:, 28]),
@@ -619,7 +689,7 @@ def pathk_trace_ref(tables, meta, config, *, n_pix, spp0, n_spp):
 # ---------------------------------------------------------------------------
 
 _TABLE_COLS = {"tri": TR_COLS, "et": mega.ET_COLS, "em_rows": mega.ER_COLS,
-               "sph": mega.SPH_COLS}
+               "sph": mega.SPH_COLS, "packed": 8, "leaf": 40}
 
 
 def _check_tables(tables, meta, device):
@@ -638,6 +708,13 @@ def _check_tables(tables, meta, device):
         raise ValueError("et must hold te_pad rows, te_cnt of them real")
     if meta["n_emitters"] > tables["em_rows"].shape[0]:
         raise ValueError("n_emitters exceeds the emitter table")
+    if meta["n_nodes"] != tables["packed"].shape[0] or any(
+            tables[k].data_ptr() % 16 for k in ("packed", "leaf")):
+        raise ValueError("packed must hold n_nodes rows, and packed and leaf must be "
+                         "16-byte aligned")
+    if t_cnt > VPU_MAX_TRIS and tables["leaf"].shape[0] * bvh.LEAF_SIZE < t_cnt:
+        raise ValueError("the medium branch needs the scene's LBVH: leaf holds "
+                         f"{tables['leaf'].shape[0]} rows for {t_cnt} triangles")
 
 
 def _check_sizes(config, n_pix, spp0, n_spp):
@@ -654,9 +731,9 @@ def _check_sizes(config, n_pix, spp0, n_spp):
 def pathk_trace(tables, meta, config, *, n_pix, spp0, n_spp):
     """Trace `n_spp` samples (from sample index `spp0`) for pixels [0, n_pix).
 
-    CPU tables run the plain version; CUDA tables launch the kernel of
-    `csrc/pathk.cu` (`<MIS, MEDIUM>` by the integrator and `t_cnt >
-    VPU_MAX_TRIS`) on the current stream, or raise. Returns float32
+    CPU tables run the plain version; CUDA tables launch a kernel of
+    `csrc/pathk.cu` on the current stream (`pathk_kernel<MIS>` up to
+    VPU_MAX_TRIS triangles, `pathk_staged_kernel<MIS>` above), or raise. Returns float32
     [16, n_pix] on the tables' device.
     """
     global LAUNCHES
@@ -673,18 +750,22 @@ def pathk_trace(tables, meta, config, *, n_pix, spp0, n_spp):
 
     lib = _build.load()
     out = torch.empty((OUT_ROWS, n_pix), dtype=torch.float32, device=device)
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    # the medium kernel's pixel counter, 0 at launch (held here until the launch)
+    next_pix = (torch.zeros(1, dtype=torch.int32, device=device)
+                if meta["t_cnt"] > VPU_MAX_TRIS else None)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.pathk_trace_launch(
             ptr(out), ptr(tables["scal_f"]), ptr(tables["em_rows"]), ptr(tables["env"]),
             ptr(tables["sph"]), tables["sph"].shape[0],
             ptr(tables["tri"]), meta["t_cnt"],
+            ptr(tables["packed"]), meta["n_nodes"], ptr(tables["leaf"]),
             ptr(tables["et"]), meta["te_cnt"], meta["te_pad"],
             n_pix, config.width, spp0, config.seed, n_spp, config.max_depth,
             meta["n_emitters"], max(config.n_emitters, 1),
             int(config.integrator == "path_mis"), FILTERS[config.rfilter],
-            int(meta["use_dof"]), ctypes.c_void_p(stream),
+            int(meta["use_dof"]), ptr(next_pix), ctypes.c_void_p(stream),
         )
     if rc != 0:
         raise RuntimeError(f"pathk kernel launch failed: cudaError {rc} ({_build.error_string(rc)})")
