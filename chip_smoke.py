@@ -3,16 +3,22 @@
 Drives the port's main path (`optix_renderer_tpu_torch`, no JAX) once:
 
 1. needs a CUDA GPU; prints its name and power limit (nvidia-smi);
-2. builds the CUDA kernel from the sources in this checkout;
-3. compares the kernel with its plain torch version on the GPU (Cornell
-   64×48, box filter, depth 4, 4 spp, path_mis and path_mats);
+2. builds the CUDA kernel from the sources in this checkout and prints
+   ptxas' registers and spills of the small branch `pathk_kernel<MIS>`;
+3. holds the kernel's rows bit for bit against its plain torch version on
+   the GPU (Cornell 64×48, box filter, depth 4, 4 spp, path_mis and
+   path_mats), prints the launch's grid and resident blocks per SM, and
+   checks that the launcher refuses a launch without its pixel counter;
 4. renders the golden configuration through the kernel and holds it
    against tests/golden/cbox_{path_mis,path_mats}.exr;
 5. renders the Cornell box at 800×600, path_mis, depth 16, gaussian filter
    through `render()` (16-spp warm-up, then 64 spp timed, film copied to the
    host inside the clock), counts the kernel's launches in that run, times
    the 512-spp bench config, and
-   times kernel and plain version at 800×600 × 16 spp, comparing the two;
+   times kernel and plain version at 800×600 × 16 spp, holding the rows
+   bit for bit, and prints the share of lane iterations that do work from
+   row 10 (warps of 32 fixed pixels, blocks of 128, and the refill model of
+   the kernel's persistent grid);
 6. runs the CLI on the GPU and checks it writes EXR and PNG;
 7. compares the intersection kernels of the general path with their plain
    versions on the GPU at the main path's width, 480,000 rays a launch:
@@ -60,6 +66,7 @@ is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import re
@@ -333,6 +340,7 @@ def main() -> None:
         make_cornell_box,
         make_tessellated_cornell,
     )
+    from optix_renderer_tpu_torch.tools.time_pathk import lane_efficiency, refill_efficiency
     from optix_renderer_tpu_torch.utils.imageio import read_exr
 
     dev = torch.device("cuda", 0)
@@ -346,6 +354,11 @@ def main() -> None:
     phase(2, f"built {Path(info['path']).name} in {time.time() - t0:.2f} s")
     for ln in regs:
         print(f"  ptxas: {ln}")
+    small_regs = {k: v for k, v in ptxas_report(info.get("ptxas", "")).items()
+                  if re.search(r"pathk_kernelILb[01]E", k)}
+    if len(small_regs) != 2:
+        raise AssertionError(f"ptxas reported {len(small_regs)} small-branch instances, not 2")
+    print(f"  small branch pathk_kernel<MIS>: {small_regs}")
 
     # ---- 3. kernel vs plain version on the card, small Cornell
     for integ in ("path_mis", "path_mats"):
@@ -354,10 +367,25 @@ def main() -> None:
         tables, meta = pathk.build_pathk_tables(scene, cfg, dev)
         n_pix = cfg.width * cfg.height
         got = pathk.pathk_trace(tables, meta, cfg, n_pix=n_pix, spp0=0, n_spp=4)
+        small_launch = pathk.last_launch()
         ref = pathk.pathk_trace_ref(tables, meta, cfg, n_pix=n_pix, spp0=0, n_spp=4)
         torch.cuda.synchronize()
         compare(film(got, 48, 64), film(ref, 48, 64), 4, f"64x48 box {integ}")
-    phase(3, "kernel agrees with the plain version (64x48, box, depth 4, 4 spp)")
+        if not torch.equal(got, ref):
+            raise AssertionError(f"64x48 box {integ}: rows differ from the plain version on "
+                                 f"{int((got != ref).any(0).sum())} pixels")
+        print(f"  64x48 box {integ}: rows bit-equal; launch {small_launch}")
+    # the launcher refuses a launch without its pixel counter (a null
+    # next_pix), and pathk_trace raises on any refusal
+    lib = _build.load()
+    vp = ctypes.c_void_p
+    rc = lib.pathk_trace_launch(vp(0), vp(0), vp(0), vp(0), vp(0), 1, vp(0), 12, vp(0), 1,
+                                vp(0), vp(0), 0, 8, 100, 10, 0, 0, 1, 4, 1, 1, 1, 0, 0, vp(0),
+                                vp(0))
+    if rc == 0:
+        raise AssertionError("the path kernel launched without its pixel counter")
+    print(f"  a launch without its pixel counter returns {rc} ({_build.error_string(rc)})")
+    phase(3, "kernel rows equal the plain version bit for bit (64x48, box, depth 4, 4 spp)")
 
     # ---- 4. golden images (tools/gen_golden.py config) through the kernel.
     # The goldens are splatted films; the kernel's film is filter-importance
@@ -428,6 +456,20 @@ def main() -> None:
     kernel_ms = ev[0].elapsed_time(ev[1]) / reps
     plain_ms = ev[1].elapsed_time(ev[2])
     stats = compare(film(got, 600, 800), film(ref, 600, 800), 16, "800x600 gaussian depth 16")
+    if not torch.equal(got, ref):
+        raise AssertionError(f"800x600: rows differ from the plain version on "
+                             f"{int((got != ref).any(0).sum())} pixels")
+    stats["max_abs_err"] = float((got - ref).abs().max())
+    # the share of lane iterations that do work, from each pixel's iteration
+    # count: warps of 32 fixed pixels, blocks of 128 that hold their slots
+    # until the slowest warp ends (a fixed grid of one thread per pixel), and
+    # the refill model at this launch's persistent grid
+    main_launch = pathk.last_launch()
+    it10 = got[10].cpu().numpy()
+    lane_eff = {"warp32": lane_efficiency(it10, 32), "block128": lane_efficiency(it10, 128),
+                "refill_model": refill_efficiency(
+                    it10, main_launch["blocks"] * main_launch["threads"] // 32)}
+    print(f"  800x600 launch {main_launch}: lane efficiency {json.dumps(lane_eff)}")
     # bound: the FP32 operations every loop iteration does at least (the
     # closest-hit sweep over the triangles and spheres, csrc/pathk.cu step 1
     # and 3) times the summed per-pixel iteration count (row 10)
@@ -810,7 +852,10 @@ def main() -> None:
 
     print(json.dumps({"kernels": [
         row("pathk_trace", KERNEL_SOURCE, REPLACES, launches, stats["max_abs_err"], kernel_ms,
-            plain_ms, (pathk_bound, pathk_by), median_rel_err=stats["median_rel_err"]),
+            plain_ms, (pathk_bound, pathk_by), median_rel_err=stats["median_rel_err"],
+            kernel="pathk_kernel<MIS> (persistent blocks, lanes that refill)",
+            shape="800x600 x 16 spp", iterations=iters, launch=main_launch,
+            lane_efficiency=lane_eff, ptxas=small_regs),
         row("isect_bvh_closest", ISECT_SOURCE, "optix_renderer_tpu/ops/pallas/cluster.py:454",
             launches_a["isect_bvh_closest"], err_bvh, ms_closest, plain_closest, b_closest,
             rays=MAIN_RAYS, visit_bytes_hbm_ms=visit_closest),

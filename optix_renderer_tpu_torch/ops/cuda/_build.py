@@ -100,10 +100,12 @@ def load() -> ctypes.CDLL:
             i, i, i, i, i, i,  # n_pix, width, spp0, seed, n_spp, max_depth
             i, i,  # n_emitters, n_lights
             i, i, i,  # mis, rfilter, use_dof
-            vp,  # next_pix: the medium kernel's uint32 counter, 0 at launch (or null)
+            vp,  # next_pix: the kernel's uint32 pixel counter, 0 at launch
             vp,  # stream
         ]
         lib.pathk_trace_launch.restype = i
+        lib.pathk_last_launch.argtypes = [vp] * 5  # int* medium, blocks, threads, per SM, smem
+        lib.pathk_last_launch.restype = None
         lib.isect_bvh_launch.argtypes = [
             vp, i, vp,  # packed, n_nodes, leaf
             vp, vp, vp, vp, i, i,  # o, d, mint, cutoff, n, any_hit

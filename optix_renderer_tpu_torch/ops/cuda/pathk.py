@@ -16,9 +16,13 @@ Two versions with one contract, both returning float32 `[16, n_pix]`:
 
 * `pathk_trace_ref` — plain torch, vectorised over pixels with per-lane
   masks. It is what `pathk_trace` runs for CPU tensors.
-* the CUDA kernels of `csrc/pathk.cu` (one thread per pixel), which
-  `pathk_trace` launches for CUDA tensors; there is no fallback between
-  the two.
+* the CUDA kernels of `csrc/pathk.cu`, which `pathk_trace` launches for
+  CUDA tensors; there is no fallback between the two. Each pixel is traced
+  whole by one thread; persistent blocks take their pixels from a counter
+  that the wrapper allocates (the small branch's lanes one pixel at a time
+  as each finishes, the medium branch's warps 32 at a time). Every pixel
+  runs on its own, so which thread runs it, and when, does not change its
+  rows.
 
 Output rows: 0:3 ΣL rgb, 3 samples done, 4:7 Σ first-hit albedo,
 7:10 Σ first-hit shading normal, 10 loop iterations, 11:16 zero.
@@ -750,10 +754,10 @@ def pathk_trace(tables, meta, config, *, n_pix, spp0, n_spp):
 
     lib = _build.load()
     out = torch.empty((OUT_ROWS, n_pix), dtype=torch.float32, device=device)
-    # the medium kernel's pixel counter, 0 at launch (held here until the launch)
-    next_pix = (torch.zeros(1, dtype=torch.int32, device=device)
-                if meta["t_cnt"] > VPU_MAX_TRIS else None)
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+    # the counter from which the kernel's warps take their pixels, 0 at launch
+    # (held here until the launch)
+    next_pix = torch.zeros(1, dtype=torch.int32, device=device)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.pathk_trace_launch(
@@ -771,3 +775,16 @@ def pathk_trace(tables, meta, config, *, n_pix, spp0, n_spp):
         raise RuntimeError(f"pathk kernel launch failed: cudaError {rc} ({_build.error_string(rc)})")
     LAUNCHES += 1
     return out
+
+
+def last_launch() -> dict[str, int]:
+    """The grid of the last `pathk_trace` launch in this process: its
+    branch, blocks, threads per block, resident blocks per SM (the
+    occupancy the launcher sized the persistent grid by) and dynamic shared
+    memory in bytes."""
+    from optix_renderer_tpu_torch.ops.cuda import _build
+
+    vals = [ctypes.c_int(0) for _ in range(5)]
+    _build.load().pathk_last_launch(*(ctypes.byref(v) for v in vals))
+    keys = ("medium", "blocks", "threads", "blocks_per_sm", "smem_bytes")
+    return {k: v.value for k, v in zip(keys, vals)}
