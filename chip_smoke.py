@@ -22,18 +22,25 @@ Drives the port's main path (`optix_renderer_tpu_torch`, no JAX) once:
 6. runs the CLI on the GPU and checks it writes EXR and PNG;
 7. compares the intersection kernels of the general path with their plain
    versions on the GPU at the main path's width, 480,000 rays a launch:
-   `isect_bvh` closest hit on camera rays and on cosine-distributed bounce
-   rays, and any hit on shadow rays toward the light, of the
-   100,012-triangle tessellated Cornell box; `isect_brute` on camera rays of
-   the Cornell box, and on a 4,096-triangle random soup so that several
-   tiles run (ids equal on all but 1e-4 of the rays, and where they differ
-   both t agree to 1e-5 relative; any-hit masks equal on all but 1e-4); the
-   plain walks are timed on those calls;
+   `isect_bvh` (the child-pair walk, plain version `traverse_pairs_ref`)
+   closest hit on camera rays and on cosine-distributed bounce rays, and
+   any hit on shadow rays toward the light, of the 100,012-triangle
+   tessellated Cornell box (`tools/time_isect.py: config_a_rays`);
+   `isect_brute` on camera rays of the Cornell box, and on a 4,096-triangle
+   random soup so that several tiles run (ids equal on all but 1e-4 of the
+   rays, the share that differs printed, and where they differ both t agree
+   to 1e-5 relative; any-hit masks equal on all but 1e-4); the plain walks
+   are timed on those calls, and the `isect_bvh` launcher must refuse a
+   launch without its ray counter;
 8. renders config A, the tessellated Cornell box at 800x600, path_mis,
    depth 8, gaussian filter, through `render()` (1-spp warm-up, then 4 spp
    timed with the film on the host), counts the LBVH kernels' launches in
-   that run, renders bench.py's 400x300 config, and times one closest-hit
-   and one any-hit launch on phase 7's rays;
+   that run, renders bench.py's 400x300 config, prints ptxas' registers and
+   spills of both `bvh_kernel` instances, and times closest hit on phase 7's
+   camera and bounce rays and any hit on its shadow rays (device time behind
+   a spin, median of 7), beside the bound of the parent's skip-link walk on
+   the same rays (its nodes and leaves per ray from `traverse_walk_ref`)
+   and the pair walk's own count;
 9. renders config B, the Cornell box at 800x600 with the mitchell filter,
    path_mis, depth 16, 4 spp, and counts `isect_brute`'s launches;
 10. renders the golden configuration through the general path
@@ -53,7 +60,8 @@ Drives the port's main path (`optix_renderer_tpu_torch`, no JAX) once:
    800x600 x 16-spp kernel launch and holds its first 300 rows bit for bit
    against the plain version on the same tables, and
    prints the bound of the LBVH walk (nodes and leaves per ray of config
-   M's own camera and bounce rays) beside the old sweep's;
+   M's own camera and bounce rays, from `traverse_walk_ref`, the skip-link
+   walk that the medium branch runs) beside the old sweep's;
 13. runs the CLI on the GPU on config M's XML at 160x120, 4 spp;
 14. runs the two probe entry points (`tools/probe_copy.py`,
    `tools/prof_parts.py`) with their launches counted, and compares each
@@ -89,16 +97,16 @@ PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 # FP32 operations counted from csrc/isect.cu (and csrc/pathk.cu, mega.cuh):
 # one Moller-Trumbore test with its interval checks, one slab test of a node,
-# one sphere test; the per-ray reciprocal of the direction
+# one pair row (two slab tests and the nearer-child compare), one sphere
+# test; the per-ray reciprocal of the direction
 OPS_MT = 52
 OPS_SLAB = 25
+OPS_PAIR = 2 * OPS_SLAB + 1
 OPS_SPHERE = 39
 OPS_RAY = 9
 # bytes per ray an intersection call must move: o, d, mint, cutoff in;
 # id, t, u, v out
 RAY_BYTES = 48
-# rays per intersection launch of configs A and B (one per pixel)
-MAIN_RAYS = 800 * 600
 # rows of config M's 800x600 launch that phase 12 holds against the plain
 # version (its LBVH walk took 65-100 s for the 300 on an H100)
 M_REF_ROWS = 300
@@ -196,47 +204,6 @@ def device_ms(fn, reps: int = 5) -> dict[str, float]:
             if e.device_type == DeviceType.CUDA}
 
 
-def camera_rays(scene, cfg, n, rng, dev):
-    """n camera rays through uniformly random film positions (numpy seed)."""
-    from optix_renderer_tpu_torch.ops.camera import sample_ray
-
-    pos = rng.uniform((0.0, 0.0), (cfg.width, cfg.height), (n, 2)).astype(np.float32)
-    ap = rng.uniform(size=(n, 2)).astype(np.float32)
-    ray, _ = sample_ray(scene.camera.to(dev), cfg.width, cfg.height,
-                        torch.from_numpy(pos).to(dev), torch.from_numpy(ap).to(dev))
-    return ray
-
-
-def bounce_and_shadow_rays(geom, ray, ids, t, rng):
-    """From each first hit: a cosine-distributed bounce ray about the
-    geometric normal (facing the viewer) and a shadow ray toward a random
-    point of the ceiling light, both from numpy uniforms."""
-    from optix_renderer_tpu_torch.core.math import Ray, cross, dot, frame_to_world, make_frame
-    from optix_renderer_tpu_torch.core.math import normalize
-
-    dev = ray.o.device
-    hit = ids >= 0
-    o, d = ray.o[hit], ray.d[hit]
-    p = o + d * t[hit][:, None]
-    tid = ids[hit].long()
-    n = normalize(cross(geom.tri_e1[tid], geom.tri_e2[tid]))
-    n = torch.where((dot(n, d) > 0)[:, None], -n, n)
-    m = p.shape[0]
-    u = torch.from_numpy(rng.uniform(size=(m, 4)).astype(np.float32)).to(dev)
-    r, phi = torch.sqrt(u[:, 0]), 2.0 * np.pi * u[:, 1]
-    local = torch.stack([r * torch.cos(phi), r * torch.sin(phi),
-                         torch.sqrt(torch.clamp(1.0 - u[:, 0], min=0.0))], dim=-1)
-    eps = torch.full((m,), 1e-4, device=dev)
-    bounce = Ray(o=p, d=frame_to_world(make_frame(n), local), mint=eps,
-                 maxt=torch.full((m,), 3.4e38, device=dev))
-    light = torch.stack([-0.4 + 0.8 * u[:, 2], torch.full_like(u[:, 2], 1.99),
-                         -0.4 + 0.8 * u[:, 3]], dim=-1)
-    to_l = light - p
-    dist = torch.sqrt(dot(to_l, to_l))
-    shadow = Ray(o=p, d=to_l / dist[:, None], mint=eps, maxt=dist - 1e-4)
-    return bounce, shadow
-
-
 def gate_closest(what, got, ref) -> float:
     """ids equal on all but 1e-4 of the rays; where they differ both t agree
     to 1e-5 relative. Returns max |t_kernel − t_plain|."""
@@ -267,21 +234,6 @@ def gate_any(what, got, ref) -> float:
     if not share <= 1e-4:
         raise AssertionError(f"{what}: any-hit masks differ on {share} of the rays")
     return max_abs
-
-
-def ptxas_report(text: str) -> dict[str, dict[str, int]]:
-    """{kernel: {registers, spill_stores, spill_loads}} from `nvcc -Xptxas -v`."""
-    out, name = {}, None
-    for ln in text.splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", ln)
-        if m:
-            name = m.group(1)
-            out[name] = {}
-        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)):
-            out[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
-        elif name and (m := re.search(r"Used (\d+) registers", ln)):
-            out[name]["registers"] = int(m.group(1))
-    return out
 
 
 def strip_room_xml(tmp: Path) -> Path:
@@ -339,6 +291,14 @@ def main() -> None:
         cornell_box_xml,
         make_cornell_box,
         make_tessellated_cornell,
+    )
+    from optix_renderer_tpu_torch.tools.time_isect import (
+        MAIN_RAYS,
+        bounce_and_shadow_rays,
+        camera_rays,
+        config_a_rays,
+        device_ms as spin_ms,
+        ptxas_report,
     )
     from optix_renderer_tpu_torch.tools.time_pathk import lane_efficiency, refill_efficiency
     from optix_renderer_tpu_torch.utils.imageio import read_exr
@@ -498,30 +458,33 @@ def main() -> None:
     scene_a, cfg_a, _ = make_tessellated_cornell(800, 600, 4, "path_mis")
     cfg_a = dataclasses.replace(cfg_a, max_depth=8, rfilter="gaussian")
     geom_a = scene_a.geometry.to(dev)
-    packed, leaf = geom_a.bvh.packed, geom_a.bvh.leaf
-    print(f"  config A: {cfg_a.n_tris} triangles, {packed.shape[0]} nodes, "
-          f"{leaf.shape[0]} leaves, built in {time.time() - t0:.2f} s")
+    tree = geom_a.bvh
+    packed, pairs, leaf = tree.packed, tree.pairs, tree.leaf
+    print(f"  config A: {cfg_a.n_tris} triangles, {packed.shape[0]} nodes, {pairs.shape[0]} pair "
+          f"rows, {leaf.shape[0]} leaves, {tree.depth} levels, built in {time.time() - t0:.2f} s")
     # the main path's width: 480,000 camera rays, and 480,000 bounce and
     # shadow rays each from the hits of 600,000 further camera rays
-    prim_a = camera_rays(scene_a, cfg_a, MAIN_RAYS, rng, dev)
-    more = camera_rays(scene_a, cfg_a, 600000, rng, dev)
-    bounce_a, shadow_a = bounce_and_shadow_rays(
-        geom_a, more, *isect.isect_bvh(packed, leaf, *more)[:2], rng)
-    if shadow_a.o.shape[0] < MAIN_RAYS:
-        raise AssertionError(f"only {shadow_a.o.shape[0]} bounce / shadow rays")
-    bounce_a, shadow_a = (type(r)(*(x[:MAIN_RAYS].contiguous() for x in r))
-                          for r in (bounce_a, shadow_a))
-    ref, plain_closest = timed(lambda: bvh.traverse_walk_ref(packed, leaf, *prim_a))
-    err_bvh = gate_closest("isect_bvh closest, camera rays",
-                           isect.isect_bvh(packed, leaf, *prim_a), ref)
+    prim_a, bounce_a, shadow_a = config_a_rays(lambda *r: isect.isect_bvh(tree, *r), scene_a,
+                                               cfg_a, rng, dev)
+    ref, plain_closest = timed(lambda: bvh.traverse_pairs_ref(pairs, leaf, *prim_a))
+    err_bvh = gate_closest("isect_bvh closest, camera rays", isect.isect_bvh(tree, *prim_a), ref)
     err_bvh = max(err_bvh, gate_closest("isect_bvh closest, bounce rays",
-                                        isect.isect_bvh(packed, leaf, *bounce_a),
-                                        bvh.traverse_walk_ref(packed, leaf, *bounce_a)))
-    ref, plain_any = timed(lambda: bvh.traverse_walk_ref(packed, leaf, *shadow_a, any_hit=True))
+                                        isect.isect_bvh(tree, *bounce_a),
+                                        bvh.traverse_pairs_ref(pairs, leaf, *bounce_a)))
+    ref, plain_any = timed(lambda: bvh.traverse_pairs_ref(pairs, leaf, *shadow_a, any_hit=True))
     err_any = gate_any("isect_bvh any, shadow rays",
-                       isect.isect_bvh(packed, leaf, *shadow_a, any_hit=True), ref)
+                       isect.isect_bvh(tree, *shadow_a, any_hit=True), ref)
     print(f"  plain walk, {MAIN_RAYS} rays: closest {plain_closest:.3f} ms, "
           f"any {plain_any:.3f} ms on {smi}")
+    # the launcher refuses a launch without its ray counter (a null next_ray)
+    vp = ctypes.c_void_p
+    rc = _build.load().isect_bvh_launch(vp(pairs.data_ptr()), vp(leaf.data_ptr()), vp(0), vp(0),
+                                        vp(0), vp(0), 1, 0, vp(0), vp(0), vp(0), vp(0), vp(0),
+                                        vp(0), vp(0))
+    if rc == 0:
+        raise AssertionError("isect_bvh launched without its ray counter")
+    print(f"  an isect_bvh launch without its ray counter returns {rc} "
+          f"({_build.error_string(rc)})")
     scene_b, cfg_b, _ = make_cornell_box(800, 600, 4, "path_mis")
     cfg_b = dataclasses.replace(cfg_b, max_depth=16, rfilter="mitchell")
     geom_b = scene_b.geometry.to(dev)
@@ -571,36 +534,56 @@ def main() -> None:
     print(f"  bench.py mesh100k config 400x300 path_mis depth 8, 4 spp: {dt_q:.4f} s, "
           f"{400 * 300 * 4 / dt_q / 1e6:.4f} Mpaths/s on {smi}; film mean "
           f"{out_q['composite'].mean():.5f}")
-    # one launch each on phase 7's rays: 480,000 camera rays (closest hit) and
-    # 480,000 shadow rays (any hit)
-    first_a = isect.isect_bvh(packed, leaf, *prim_a, with_visits=True)
-    any_a = isect.isect_bvh(packed, leaf, *shadow_a, any_hit=True, with_visits=True)
-    ms_closest = event_ms(lambda: isect.isect_bvh(packed, leaf, *prim_a), reps=5)
-    ms_any = event_ms(lambda: isect.isect_bvh(packed, leaf, *shadow_a, any_hit=True), reps=5)
-    dev_closest = device_ms(lambda: isect.isect_bvh(packed, leaf, *prim_a))
-    print(f"  isect_bvh closest, {MAIN_RAYS} rays, device time per call (ms): "
-          + "; ".join(f"{k[:40]} {v:.4f}" for k, v in dev_closest.items()))
+    # one launch each on phase 7's rays: closest hit on the 480,000 camera
+    # rays and on the 480,000 bounce rays, any hit on the 480,000 shadow
+    # rays; device time behind a spin (tools/time_isect.py: device_ms),
+    # median of 7, and the pair rows read and leaves tested per ray
+    bvh_regs = {k: v for k, v in ptxas_report(info.get("ptxas", "")).items()
+                if re.search(r"isect10bvh_kernel", k)}
+    if len(bvh_regs) != 2:
+        raise AssertionError(f"ptxas reported {len(bvh_regs)} bvh_kernel instances, not 2")
+    print(f"  isect_bvh bvh_kernel<ANY>: {bvh_regs}")
     table_bytes = (packed.numel() + leaf.numel()) * 4
 
-    def walk_bound(visits):
-        """(bound: the operations this run's walk does, against the bytes the
-        function must move, rays in and out and the tables read once;
-        the time of every node and leaf read from device memory, which the
-        L2-resident tables mostly avoid)"""
+    def walk_bound(visits, ops_node, node_bytes):
+        """(bound: the operations the walk does on these rays, `ops_node`
+        per node or pair row read, against the bytes the function must
+        move, rays in and out and the LBVH's tables read once; the time of
+        every row and leaf read from device memory, which the L2-resident
+        tables mostly avoid)"""
         nodes, leaves = (float(x) for x in visits.double().sum(dim=1))
         n_rays = visits.shape[1]
-        need = bound(nodes * OPS_SLAB + leaves * 4 * (OPS_MT + 1) + n_rays * OPS_RAY,
+        need = bound(nodes * ops_node + leaves * 4 * (OPS_MT + 1) + n_rays * OPS_RAY,
                      n_rays * RAY_BYTES + table_bytes)
-        return need, (nodes * 32 + leaves * 160) / PEAK_BYTES * 1e3
+        return need, (nodes * node_bytes + leaves * 160) / PEAK_BYTES * 1e3
 
-    (b_closest, visit_closest), (b_any, visit_any) = walk_bound(first_a[4]), walk_bound(any_a[4])
-    for what, ms, b, visit_ms, vis in (("closest, camera", ms_closest, b_closest, visit_closest,
-                                        first_a[4]),
-                                       ("any, shadow", ms_any, b_any, visit_any, any_a[4])):
-        print(f"  isect_bvh {what} rays, {MAIN_RAYS}: {ms:.4f} ms (bound {b[0]:.4f} ms, {b[1]}; "
-              f"every visit from device memory {visit_ms:.4f} ms; "
-              f"{float(vis[0].float().mean()):.1f} nodes, {float(vis[1].float().mean()):.2f} "
-              f"leaves per ray) on {smi}")
+    bvh_rows = {}
+    for key, rays, any_hit in (("closest_camera", prim_a, False),
+                               ("closest_bounce", bounce_a, False),
+                               ("any_shadow", shadow_a, True)):
+        vis = isect.isect_bvh(tree, *rays, any_hit=any_hit, with_visits=True)[4]
+        ms = float(np.median(spin_ms(lambda: isect.isect_bvh(tree, *rays, any_hit=any_hit), 7)))
+        # the yardstick stays the skip-link walk's (the parent kernel's) on
+        # the same rays; the pair walk's own count is printed beside it
+        skip_vis = bvh.traverse_walk_ref(packed, leaf, *rays, any_hit=any_hit,
+                                         with_visits=True)[4]
+        (b_skip, _), (b_pair, visit_ms) = (walk_bound(skip_vis, OPS_SLAB, 32),
+                                           walk_bound(vis, OPS_PAIR, 64))
+        bvh_rows[key] = {"ms": ms, "bound": b_skip, "visit_bytes_hbm_ms": visit_ms,
+                         "pair_walk_bound_ms": b_pair[0],
+                         "rows_per_ray": float(vis[0].double().mean()),
+                         "leaves_per_ray": float(vis[1].double().mean()),
+                         "skip_walk_nodes_per_ray": float(skip_vis[0].double().mean()),
+                         "skip_walk_leaves_per_ray": float(skip_vis[1].double().mean()),
+                         "launch": isect.last_launch()}
+        r = bvh_rows[key]
+        print(f"  isect_bvh {key}, {MAIN_RAYS} rays: {ms:.4f} ms (bound {b_skip[0]:.4f} ms, "
+              f"{b_skip[1]}, from the skip-link walk's {r['skip_walk_nodes_per_ray']:.1f} nodes and "
+              f"{r['skip_walk_leaves_per_ray']:.2f} leaves per ray; the pair walk's own "
+              f"{r['rows_per_ray']:.1f} rows and {r['leaves_per_ray']:.2f} leaves give "
+              f"{b_pair[0]:.4f} ms; every visit from device memory {visit_ms:.4f} ms); launch "
+              f"{r['launch']} on {smi}")
+    ms_closest, ms_any = bvh_rows["closest_camera"]["ms"], bvh_rows["any_shadow"]["ms"]
     # where the time of a config A sample goes: device time by kernel and the
     # device's idle share of the wall clock (torch.profiler; only the CUDA
     # events are summed, since each CPU op's row repeats its kernels' time)
@@ -766,10 +749,10 @@ def main() -> None:
     geom_m = scene_m.geometry.to(dev)
     packed_m, leaf_m = geom_m.bvh.packed, geom_m.bvh.leaf
     cam_m = camera_rays(scene_m, cfg_m, MAIN_RAYS, rng_m, dev)
-    first_m = isect.isect_bvh(packed_m, leaf_m, *cam_m, with_visits=True)
+    first_m = bvh.traverse_walk_ref(packed_m, leaf_m, *cam_m, with_visits=True)
     bounce_m, _ = bounce_and_shadow_rays(geom_m, cam_m, first_m[0], first_m[1], rng_m)
-    vis_m = torch.cat([first_m[4], isect.isect_bvh(packed_m, leaf_m, *bounce_m,
-                                                   with_visits=True)[4]], dim=1)
+    vis_m = torch.cat([first_m[4], bvh.traverse_walk_ref(packed_m, leaf_m, *bounce_m,
+                                                         with_visits=True)[4]], dim=1)
     nodes_m, leaves_m = (float(x) for x in vis_m.double().mean(dim=1))
     walk_ray_ops = nodes_m * OPS_SLAB + leaves_m * 4 * (OPS_MT + 1) + OPS_RAY
     walk_bound = bound(iters_m * (walk_ray_ops + meta["n_sph"] * OPS_SPHERE + 5), 16 * 4 * n_pix)
@@ -857,11 +840,16 @@ def main() -> None:
             shape="800x600 x 16 spp", iterations=iters, launch=main_launch,
             lane_efficiency=lane_eff, ptxas=small_regs),
         row("isect_bvh_closest", ISECT_SOURCE, "optix_renderer_tpu/ops/pallas/cluster.py:454",
-            launches_a["isect_bvh_closest"], err_bvh, ms_closest, plain_closest, b_closest,
-            rays=MAIN_RAYS, visit_bytes_hbm_ms=visit_closest),
+            launches_a["isect_bvh_closest"], err_bvh, ms_closest, plain_closest,
+            bvh_rows["closest_camera"]["bound"], rays=MAIN_RAYS,
+            kernel="bvh_kernel<false> (child-pair walk, persistent warps fed from a ray counter)",
+            camera=bvh_rows["closest_camera"], bounce=bvh_rows["closest_bounce"],
+            ms_bounce=bvh_rows["closest_bounce"]["ms"],
+            bound_ms_bounce=bvh_rows["closest_bounce"]["bound"][0], ptxas=bvh_regs),
         row("isect_bvh_any", ISECT_SOURCE, "optix_renderer_tpu/ops/pallas/cluster.py:454",
-            launches_a["isect_bvh_any"], err_any, ms_any, plain_any, b_any, rays=MAIN_RAYS,
-            visit_bytes_hbm_ms=visit_any),
+            launches_a["isect_bvh_any"], err_any, ms_any, plain_any,
+            bvh_rows["any_shadow"]["bound"], rays=MAIN_RAYS, kernel="bvh_kernel<true>",
+            shadow=bvh_rows["any_shadow"], ptxas=bvh_regs),
         row("isect_brute", ISECT_SOURCE, "optix_renderer_tpu/ops/pallas/mxu_intersect.py:195",
             launches_b["isect_brute"], err_brute, ms_brute, plain_brute, b_brute, rays=MAIN_RAYS,
             also_replaces="optix_renderer_tpu/ops/pallas/mt_kernel.py:140"),

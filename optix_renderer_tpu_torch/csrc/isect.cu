@@ -1,44 +1,62 @@
-// Closest-hit and any-hit kernels of the general path for Hopper (sm_90a),
-// one thread per ray.
+// Closest-hit and any-hit kernels of the general path for Hopper (sm_90a).
 //
 // Replaces three TPU kernels that compute one function, the closest (or any)
 // hit of a ray wavefront against the triangle table:
-//   * optix_renderer_tpu/ops/pallas/cluster.py: cluster_raw -> _cluster_kernel
+//   * optix_renderer_tpu/ops/pallas/cluster.py:454 cluster_raw -> _cluster_kernel
 //     (> 8192 triangles, Morton clusters of 256 swept as bf16 hi/lo matmuls
-//     behind an XLA-built worklist)            -> isect_bvh<false / true>
+//     behind an XLA-built worklist)            -> isect_bvh (bvh_kernel<false / true>)
 //   * optix_renderer_tpu/ops/pallas/mxu_intersect.py: mxu_raw -> _mxu_kernel
 //     (<= 8192 triangles as a [256,16] @ [16,512] matmul)   -> isect_brute
 //   * optix_renderer_tpu/ops/pallas/mt_kernel.py: _mt_pallas -> _mt_kernel
 //     (brute-force Moller-Trumbore with a fused argmin)     -> isect_brute
 // The Pallas kernels take those shapes because Mosaic cannot gather per
-// lane. On Hopper each thread owns one ray and walks the packed LBVH of
-// ops/bvh.py with ordinary loads, as the JAX package's CPU walk does
-// (ops/bvh.py: _traverse_walk; the walk is csrc/walk.cuh, which the path
-// kernel's medium branch shares), or sweeps the triangle table in
-// shared-memory tiles.
+// lane. On Hopper each thread owns one ray and walks the LBVH of ops/bvh.py
+// with ordinary loads, or sweeps the triangle table in shared-memory tiles.
+//
+// isect_bvh reads the tree as child pairs (ops/bvh.py: pack_child_pairs):
+// one 64-byte row per interior node with both children's boxes and
+// references. The skip-link walk of csrc/walk.cuh, one node per step in a
+// fixed left-first order, stays with the path kernel's medium branch.
 //
 // What bounds them on this card:
-//   * isect_bvh: the latency of dependent loads. Each step reads one 32-byte
-//     node and, for a leaf whose box is hit, one 160-byte leaf row before it
-//     knows where to go next; a few dozen FP32 operations per step cannot
-//     hide that. The design keeps each step to two 16-byte __ldg loads per
-//     node and ten per leaf (read-only path, L1/L2-resident for scenes of
-//     ~100k triangles: 3.2 MB of nodes, 4 MB of leaves), keeps no stack (the
-//     skip links make the walk a single cursor) and stops an any-hit walk at
-//     its first confirmed hit.
+//   * isect_bvh: dependent, scattered loads. A step cannot know its next row
+//     before this one has arrived, the few dozen FP32 operations of a step
+//     cannot hide an L1/L2 round trip, and a divergent warp's 16-byte gather
+//     costs the L1 about one wavefront per distinct line it touches, so the
+//     time follows the load instructions per ray (PERF.md §6). The design:
+//       - a step reads one pair row as four independent 16-byte __ldg loads,
+//         issued together, and slab-tests both children, so a ray reads
+//         less than half as many rows as the skip-link walk reads nodes, one
+//         round trip each (config A: 1.6 MB of pairs and 4 MB of leaves,
+//         L2-resident);
+//       - it goes on to the nearer child that was hit and pushes the other
+//         with its near t onto a per-ray stack of STACK_DEPTH entries; a
+//         closest-hit walk drops popped entries that lie past its best t,
+//         so a near hit prunes the far subtrees; an any-hit walk stops at
+//         its first confirmed hit;
+//       - persistent warps fed from a ray counter: the launch fills the card
+//         with blocks (cudaOccupancyMaxActiveBlocksPerMultiprocessor), and a
+//         lane whose ray is done takes the next ray index (the lanes without
+//         a ray ballot, one of them adds their count to the counter, each
+//         takes base + its rank), so a warp does not idle lanes until its
+//         slowest ray ends. On an H100 this gave most of the gain over the
+//         skip-link walk; a stack in shared memory, the top rows staged in
+//         shared memory and rays sorted first did not pay (PERF.md §6).
 //   * isect_brute: FP32 ALU work, ~40 operations per ray-triangle pair. A
 //     block stages tiles of up to 256 triangles (v0, e1, e2) in shared memory
 //     and every thread of the block sweeps the same tile, so the table is
 //     read from device memory once per block and each read is a broadcast.
 //
-// Contract (ops/cuda/isect.py; plain versions ops/bvh.py: traverse_walk_ref
+// Contract (ops/cuda/isect.py; plain versions ops/bvh.py: traverse_pairs_ref
 // and ops/cuda/isect.py: mt_sweep_ref): o, d [N,3], mint, cutoff [N] float32
 // in; id [N] int32 (-1 on a miss) and t, u, v [N] float32 out (t = cutoff,
-// u = v = 0 on a miss). A hit needs mint <= t < best; candidates are taken
-// in order with strict <, so among equal t the first wins (leaf slot order
-// in the walk, lowest index in the sweep: an argmin's tie-break). The
-// arithmetic and its order are the plain versions', and the library is
-// built without FMA contraction (ops/cuda/_build.py), so ids equal theirs.
+// u = v = 0 on a miss). A hit needs mint <= t < best. The walk breaks exact
+// ties in t by the smaller triangle id, so its winner does not depend on the
+// visit order; the sweep takes candidates in order with strict <: both give
+// a sweep's lowest-index minimum. visits [2, N] (optional) counts the pair
+// rows read and the leaves tested per ray. The arithmetic and its order are
+// the plain versions', and the library is built without FMA contraction
+// (ops/cuda/_build.py), so ids equal theirs.
 //
 // The per-ray functions are HD: device code under nvcc, plain inline C++
 // under a host compiler, so the walk and the sweep can be checked against
@@ -47,7 +65,9 @@
 
 namespace isect {
 
-constexpr int TILE = 256;  // triangles per shared-memory tile of the sweep
+constexpr int TILE = 256;       // triangles per shared-memory tile of the sweep
+constexpr int PAIR_COLS = 16;   // left min 3 max 3 | right min 3 max 3 | refs 2 | pad 2
+constexpr int STACK_DEPTH = 24; // ops/bvh.py: STACK_DEPTH; deeper trees are refused
 
 // One ray against `cnt` triangles of a [cnt, 9] tile whose first triangle
 // has global index `base` (ops/cuda/isect.py: mt_sweep_ref).
@@ -75,27 +95,177 @@ HD RayIn ray_at(const float* o, const float* d, const float* mint, int i) {
   return r;
 }
 
-#ifdef __CUDACC__
+// One ray's walk of the child-pair table (ops/bvh.py: traverse_pairs_ref).
+// cur: the pair row to read next (>= 0) or the leaf row to test (~cur).
+// Its stack, the farther children not yet entered with their near t, is
+// kept apart (Stack): with the arrays inside this struct the walk ran 14 %
+// slower on an H100 (PERF.md §6).
+struct PairWalk {
+  RayIn r;
+  float ix, iy, iz;
+  Best b;
+  int cur, sp, rows, leaves;
+  bool found;
+};
+
+struct Stack {
+  int ref[STACK_DEPTH];
+  float near_t[STACK_DEPTH];
+};
+
+HD void pair_begin(PairWalk& w, const RayIn& r, float cutoff) {
+  w.r = r;
+  w.ix = 1.0f / (fabsf(r.dx) > DIR_EPS ? r.dx : DIR_EPS);
+  w.iy = 1.0f / (fabsf(r.dy) > DIR_EPS ? r.dy : DIR_EPS);
+  w.iz = 1.0f / (fabsf(r.dz) > DIR_EPS ? r.dz : DIR_EPS);
+  w.b = Best{cutoff, 0.0f, 0.0f, -1};
+  w.cur = w.sp = w.rows = w.leaves = 0;
+  w.found = false;
+}
+
+// the slab test of walk.cuh on one child's box; near_ is its entry t
+HD bool child_hit(const PairWalk& w, float x0, float y0, float z0, float x1, float y1, float z1,
+                  float& near_) {
+  const float t0x = (x0 - w.r.ox) * w.ix, t1x = (x1 - w.r.ox) * w.ix;
+  const float t0y = (y0 - w.r.oy) * w.iy, t1y = (y1 - w.r.oy) * w.iy;
+  const float t0z = (z0 - w.r.oz) * w.iz, t1z = (z1 - w.r.oz) * w.iz;
+  near_ = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
+  const float far_ = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
+  return near_ <= far_ && far_ >= w.r.mint && near_ <= w.b.t;
+}
+
+// a leaf row's four slots in order; an equal t goes to the smaller id
+HD void test_leaf(const float* leaf, int row_i, PairWalk& w) {
+  float s[LEAF_COLS];
+  const float* row = leaf + (size_t)row_i * LEAF_COLS;
+  for (int k = 0; k < LEAF_COLS; k += 4) load4(row + k, s + k);
+  for (int j = 0; j < LEAF_SIZE; ++j) {
+    const float* slot = s + 10 * j;
+    const int pid = as_int(slot[9]);
+    float t, u, v;
+    if (mt(w.r, slot, t, u, v) && pid >= 0 && t >= w.r.mint &&
+        (t < w.b.t || (t == w.b.t && pid < w.b.id))) {
+      w.b = Best{t, u, v, pid};
+      w.found = true;
+    }
+  }
+}
+
+// One step: read a pair row and go on to the nearer child that was hit,
+// pushing the other, or test a leaf; then, if there is no child to go on
+// to, pop until an entry lies within the best t. Returns true when the
+// ray is done.
 template <bool ANY>
-__global__ void __launch_bounds__(128)
-    bvh_kernel(const float* __restrict__ packed, int n_nodes, const float* __restrict__ leaf,
+HD bool pair_step(const float* pairs, const float* leaf, PairWalk& w, Stack& st) {
+  if (w.cur >= 0) {
+    ++w.rows;
+    const float* row = pairs + (size_t)w.cur * PAIR_COLS;
+    float a[4], c[4], e[4], f[4];
+    load4(row, a);       // left: minx miny minz maxx
+    load4(row + 4, c);   // left: maxy maxz | right: minx miny
+    load4(row + 8, e);   // right: minz maxx maxy maxz
+    load4(row + 12, f);  // left ref, right ref, pad
+    float nl, nr;
+    const bool hl = child_hit(w, a[0], a[1], a[2], a[3], c[0], c[1], nl);
+    const bool hr = child_hit(w, c[2], c[3], e[0], e[1], e[2], e[3], nr);
+    const int rl = as_int(f[0]), rr = as_int(f[1]);
+    if (hl && hr) {
+      const bool rfirst = nr < nl;
+      st.ref[w.sp] = rfirst ? rl : rr;
+      st.near_t[w.sp] = rfirst ? nl : nr;
+      ++w.sp;
+      w.cur = rfirst ? rr : rl;
+      return false;
+    }
+    if (hl || hr) {
+      w.cur = hl ? rl : rr;
+      return false;
+    }
+  } else {
+    ++w.leaves;
+    test_leaf(leaf, ~w.cur, w);
+    if (ANY && w.found) return true;
+  }
+  while (w.sp > 0) {
+    --w.sp;
+    if (!(st.near_t[w.sp] > w.b.t)) {
+      w.cur = st.ref[w.sp];
+      return false;
+    }
+  }
+  return true;
+}
+
+HD void pair_store(const PairWalk& w, int ray, int n, int* out_id, float* out_t, float* out_u,
+                   float* out_v, int* visits) {
+  out_id[ray] = w.b.id;
+  out_t[ray] = w.b.t;
+  out_u[ray] = w.b.u;
+  out_v[ray] = w.b.v;
+  if (visits) {
+    visits[ray] = w.rows;
+    visits[n + ray] = w.leaves;
+  }
+}
+
+#ifdef __CUDACC__
+constexpr uint32_t FULL = 0xffffffffu;
+// threads per persistent block; blocks of 64 and 256 measured no faster on
+// an H100 (PERF.md §6)
+constexpr int BVH_THREADS = 128;
+// lanes that must wait at a leaf before a warp pass steps the leaf tests
+// (8 to 16 measured alike on an H100, PERF.md §6)
+constexpr int LEAF_BATCH = 12;
+
+// Persistent: every lane keeps a ray while rays remain. A lane whose ray is
+// done stores it and takes the next index from the counter (one atomicAdd
+// per warp for all such lanes), and the warp leaves when no lane holds a
+// ray, so every __ballot_sync sees all 32 lanes. Each pass steps one kind
+// of lane: those at a pair row, or, once LEAF_BATCH lanes (or all lanes
+// with a ray) wait at a leaf, those. A warp that stepped both kinds in
+// every pass ran the 10-load leaf test in nearly every pass; a lane still
+// takes its own steps in its own order, so its result and counts are the
+// plain version's.
+template <bool ANY>
+__global__ void __launch_bounds__(BVH_THREADS)
+    bvh_kernel(const float* __restrict__ pairs, const float* __restrict__ leaf,
                const float* __restrict__ o, const float* __restrict__ d,
                const float* __restrict__ mint, const float* __restrict__ cutoff, int n,
                int* __restrict__ out_id, float* __restrict__ out_t, float* __restrict__ out_u,
-               float* __restrict__ out_v, int* __restrict__ visits) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const RayIn r = ray_at(o, d, mint, i);
-  Best b = {cutoff[i], 0.0f, 0.0f, -1};
-  int nodes, leaves;
-  walk<ANY>(packed, n_nodes, leaf, r, b, nodes, leaves);
-  out_id[i] = b.id;
-  out_t[i] = b.t;
-  out_u[i] = b.u;
-  out_v[i] = b.v;
-  if (visits) {
-    visits[i] = nodes;
-    visits[n + i] = leaves;
+               float* __restrict__ out_v, int* __restrict__ visits,
+               uint32_t* __restrict__ next_ray) {
+  const uint32_t lane = threadIdx.x & 31u;
+  PairWalk w;
+  Stack st;
+  int ray = 0;
+  bool have = false, more = true;
+  for (;;) {
+    // the lanes without a ray take the next ones, in lane order
+    const uint32_t need = __ballot_sync(FULL, !have && more);
+    if (need) {
+      const int leader = __ffs(need) - 1;
+      uint32_t base = 0;
+      if ((int)lane == leader) base = atomicAdd(next_ray, (uint32_t)__popc(need));
+      base = __shfl_sync(FULL, base, leader);
+      if (!have && more) {
+        const uint32_t k = base + (uint32_t)__popc(need & ((1u << lane) - 1u));
+        if (k < (uint32_t)n) {
+          ray = (int)k;
+          pair_begin(w, ray_at(o, d, mint, ray), cutoff[ray]);
+          have = true;
+        } else {
+          more = false;  // the counter only grows: no ray is left
+        }
+      }
+    }
+    if (!__any_sync(FULL, have)) break;
+    const uint32_t at_leaf = __ballot_sync(FULL, have && w.cur < 0);
+    const uint32_t at_row = __ballot_sync(FULL, have && w.cur >= 0);
+    const bool leaves = __popc(at_leaf) >= LEAF_BATCH || at_row == 0;
+    if (have && (w.cur < 0) == leaves && pair_step<ANY>(pairs, leaf, w, st)) {
+      pair_store(w, ray, n, out_id, out_t, out_u, out_v, visits);
+      have = false;
+    }
   }
 }
 
@@ -132,27 +302,62 @@ __global__ void __launch_bounds__(TILE)
 }  // namespace isect
 
 #ifdef __CUDACC__
-// any_hit: 0 closest hit, 1 stop at the first confirmed hit. visits [2, n] (nodes
-// visited, leaves tested per ray) may be null.
-extern "C" int isect_bvh_launch(const float* packed, int n_nodes, const float* leaf,
-                                const float* o, const float* d, const float* mint,
-                                const float* cutoff, int n, int any_hit, int* out_id,
-                                float* out_t, float* out_u, float* out_v, int* visits,
-                                void* stream) {
-  const int threads = 128;
-  const int blocks = (n + threads - 1) / threads;
+namespace {
+struct BvhLaunch {
+  int blocks, threads, blocks_per_sm;
+};
+BvhLaunch g_bvh_last = {0, 0, 0};
+
+// persistent blocks: as many as fit on the card at once, at most one per
+// BVH_THREADS rays
+template <typename K>
+cudaError_t launch_bvh(K kernel, const float* pairs, const float* leaf, const float* o,
+                       const float* d, const float* mint, const float* cutoff, int n,
+                       int* out_id, float* out_t, float* out_u, float* out_v, int* visits,
+                       uint32_t* next_ray, cudaStream_t s) {
+  const int threads = isect::BVH_THREADS;
+  int dev = 0, n_sm = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  if (e != cudaSuccess) return e;
+  const int need = (n + threads - 1) / threads;
+  const int fit = n_sm * (per_sm > 1 ? per_sm : 1);
+  const int blocks = need < fit ? need : fit;
+  g_bvh_last = BvhLaunch{blocks, threads, per_sm};
+  kernel<<<blocks, threads, 0, s>>>(pairs, leaf, o, d, mint, cutoff, n, out_id, out_t, out_u,
+                                    out_v, visits, next_ray);
+  return cudaSuccess;
+}
+}  // namespace
+
+// pairs [n_pairs, 16], leaf [n_leaves, 40]; any_hit: 0 closest hit, 1 stop
+// at the first confirmed hit; visits [2, n] (pair rows read, leaves tested
+// per ray) may be null; next_ray: one uint32 that holds 0 at launch, the
+// counter from which the lanes take their rays (a null one is refused).
+extern "C" int isect_bvh_launch(const float* pairs, const float* leaf, const float* o,
+                                const float* d, const float* mint, const float* cutoff, int n,
+                                int any_hit, int* out_id, float* out_t, float* out_u,
+                                float* out_v, int* visits, uint32_t* next_ray, void* stream) {
+  if (next_ray == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (n > 0) {
-    if (any_hit)
-      isect::bvh_kernel<true><<<blocks, threads, 0, s>>>(packed, n_nodes, leaf, o, d, mint,
-                                                          cutoff, n, out_id, out_t, out_u,
-                                                          out_v, visits);
-    else
-      isect::bvh_kernel<false><<<blocks, threads, 0, s>>>(packed, n_nodes, leaf, o, d, mint,
-                                                           cutoff, n, out_id, out_t, out_u,
-                                                           out_v, visits);
+    const cudaError_t e =
+        any_hit ? launch_bvh(isect::bvh_kernel<true>, pairs, leaf, o, d, mint, cutoff, n, out_id,
+                             out_t, out_u, out_v, visits, next_ray, s)
+                : launch_bvh(isect::bvh_kernel<false>, pairs, leaf, o, d, mint, cutoff, n,
+                             out_id, out_t, out_u, out_v, visits, next_ray, s);
+    if (e != cudaSuccess) return (int)e;
   }
   return (int)cudaGetLastError();
+}
+
+// the grid, block size and resident blocks per SM of the last isect_bvh
+// launch
+extern "C" void isect_bvh_last_launch(int* blocks, int* threads, int* blocks_per_sm) {
+  *blocks = g_bvh_last.blocks;
+  *threads = g_bvh_last.threads;
+  *blocks_per_sm = g_bvh_last.blocks_per_sm;
 }
 
 // tri [t_cnt, 9] = v0 e1 e2 per row

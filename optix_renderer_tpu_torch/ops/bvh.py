@@ -13,12 +13,17 @@ cursor and no stack. The walk reads two packed tables:
 * `leaf [n_leaves, 40]` — per slot v0(3) e1(3) e2(3) id bits(1); pad slots
   have id −1 and e1 = e2 = 0.
 
-`traverse_walk_ref` is the plain torch version of the walk
-(`_traverse_walk`, bvh.py:396-471); `ops/cuda/isect.py` holds the CUDA
-kernel with the same contract (the walk itself is `csrc/walk.cuh`, which
-the path kernel's medium branch also runs, `ops/cuda/pathk.py`), and
-`replay_tri` recomputes (t, u, v) of the winner from the live triangle
-arrays (the detach-and-replay contract).
+`traverse_walk_ref` is the plain torch version of that walk
+(`_traverse_walk`, bvh.py:396-471) and of `csrc/walk.cuh`, which the path
+kernel's medium branch runs (`ops/cuda/pathk.py`).
+
+The general path's kernel (`csrc/isect.cu`, wrapper `ops/cuda/isect.py:
+isect_bvh`) reads the same tree as a third table, `pairs [n_pairs, 16]`
+(`pack_child_pairs`): one row per interior node holding both children's
+boxes and references, walked nearest child first from a short stack;
+`traverse_pairs_ref` is its plain version. `replay_tri` recomputes
+(t, u, v) of the winner from the live triangle arrays (the
+detach-and-replay contract).
 """
 
 from __future__ import annotations
@@ -32,6 +37,13 @@ MIN_TRIS_FOR_BVH = 257
 # the JAX package builds a sphere LBVH from this many spheres (bvh.py:48)
 MIN_SPHS_FOR_BVH = 65
 BIG = 3.4e38
+# a child-pair row: left box min(3) max(3) | right box min(3) max(3) |
+# left ref, right ref (int32 bits) | 2 pad; a ref >= 0 is a pair row, a ref
+# < 0 is the leaf row ~ref
+PAIR_COLS = 16
+# entries of the pair walk's per-ray stack (csrc/isect.cu: STACK_DEPTH); a
+# tree of more levels (`pairs_depth`) is refused
+STACK_DEPTH = 24
 
 
 # ---------------------------------------------------------------------------
@@ -186,6 +198,54 @@ def build_bvh_tables_from_edges(v0, e1, e2) -> tuple[np.ndarray, np.ndarray]:
             _pack_tri_leaves(prim, v0, e1, e2, LEAF_SIZE))
 
 
+def pack_child_pairs(packed) -> np.ndarray:
+    """The skip-link table `packed [Nn, 8]` → child pairs [n_pairs, 16] float32.
+
+    One row per interior node, breadth first (the root's row is row 0, and
+    each level's rows follow the level above, left before right): the boxes
+    of its children `i + 1` and `skip[i + 1]` copied bit for bit, then their
+    references as int32 bits (a pair row, or `~leaf_row` for a leaf, whose
+    slots start at `first // LEAF_SIZE`). The tree is the same one. A tree
+    whose root is a leaf gets one row with that leaf on the left and an
+    empty right slot: a NaN box, which no slab test hits, and ref ~0."""
+    packed = np.asarray(packed, np.float32)
+    links = np.ascontiguousarray(packed[:, 6:8]).view(np.int32)
+    skip, first = links[:, 0], links[:, 1]
+    ref_bits = lambda r: np.asarray(r, np.int32).view(np.float32)
+    if first[0] >= 0:
+        row = np.full((1, PAIR_COLS), np.nan, np.float32)
+        row[0, 0:6] = packed[0, 0:6]
+        row[0, 12:16] = ref_bits([~(first[0] // LEAF_SIZE), ~0, 0, 0])
+        return row
+    levels, frontier = [], np.array([0], np.int64)
+    while frontier.size:
+        levels.append(frontier)
+        kids = np.stack([frontier + 1, skip[frontier + 1]], axis=1).ravel()
+        frontier = kids[first[kids] < 0]
+    interior = np.concatenate(levels)
+    row_of = np.full(packed.shape[0], -1, np.int64)
+    row_of[interior] = np.arange(interior.size)
+    pairs = np.zeros((interior.size, PAIR_COLS), np.float32)
+    for side, child in enumerate((interior + 1, skip[interior + 1])):
+        pairs[:, 6 * side:6 * side + 6] = packed[child, 0:6]
+        pairs[:, 12 + side] = ref_bits(np.where(first[child] >= 0, ~(first[child] // LEAF_SIZE),
+                                                row_of[child]))
+    return pairs
+
+
+def pairs_depth(pairs) -> int:
+    """Levels of the tree that a child-pair table holds: pair rows on its
+    longest path from row 0, plus one for the leaf. A walk pushes at most one
+    entry per pair row on its path, so its stack needs fewer entries."""
+    refs = np.ascontiguousarray(np.asarray(pairs, np.float32)[:, 12:14]).view(np.int32)
+    depth, frontier = 1, np.array([0], np.int64)
+    while frontier.size:
+        depth += 1
+        kids = refs[frontier].ravel()
+        frontier = kids[kids >= 0].astype(np.int64)
+    return depth
+
+
 # ---------------------------------------------------------------------------
 # per-lane arithmetic shared by the walk, the sweep and the replay
 # ---------------------------------------------------------------------------
@@ -229,14 +289,44 @@ def safe_inv_dir(d: torch.Tensor) -> torch.Tensor:
     return 1.0 / torch.where(torch.abs(d) > 1e-20, d, 1e-20)
 
 
-def _slab(o, inv_d, bmin, bmax, tmin, tmax):
-    """Ray–AABB slab test (bbox.h), [M,3] / [M] → hit mask [M]."""
+def _slab_near(o, inv_d, bmin, bmax, tmin, tmax):
+    """Ray–AABB slab test (bbox.h), [M,3] / [M] → (hit mask [M], near t [M])."""
     t0 = (bmin - o) * inv_d
     t1 = (bmax - o) * inv_d
     lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
     near = torch.maximum(torch.maximum(lo[:, 0], lo[:, 1]), lo[:, 2])
     far = torch.minimum(torch.minimum(hi[:, 0], hi[:, 1]), hi[:, 2])
-    return (near <= far) & (far >= tmin) & (near <= tmax)
+    return (near <= far) & (far >= tmin) & (near <= tmax), near
+
+
+def _slab(o, inv_d, bmin, bmax, tmin, tmax):
+    """Ray–AABB slab test (bbox.h), [M,3] / [M] → hit mask [M]."""
+    return _slab_near(o, inv_d, bmin, bmax, tmin, tmax)[0]
+
+
+def _test_leaves(leaf, rows, o, d, mint, bt, bu, bv, bi, lowest_id):
+    """The four slots of leaf rows `rows` [k] against rays [k], in slot order
+    with strict `<` against the running best (bt, bu, bv, bi) (the
+    argmin-first tie-break), or with `lowest_id` also taking an equal t
+    from a smaller triangle id. Returns the new best and whether a slot
+    was taken. The slots are tested in one broadcast ([k, 1, 3] rays
+    against [k, LEAF_SIZE, 3] slots: the same arithmetic per pair)."""
+    slots = leaf[rows].reshape(-1, LEAF_SIZE, 10)
+    pids = slots[..., 9].contiguous().view(torch.int32)
+    t, u, v, h = mt_lanes(o[:, None], d[:, None], slots[..., 0:3], slots[..., 3:6],
+                          slots[..., 6:9])
+    ok = h & (pids >= 0) & (t >= mint[:, None])
+    took = torch.zeros_like(ok[:, 0])
+    for j in range(LEAF_SIZE):
+        tj, pj = t[:, j], pids[:, j]
+        closer = (tj < bt) | ((tj == bt) & (pj < bi)) if lowest_id else tj < bt
+        better = ok[:, j] & closer
+        bt = torch.where(better, tj, bt)
+        bu = torch.where(better, u[:, j], bu)
+        bv = torch.where(better, v[:, j], bv)
+        bi = torch.where(better, pj, bi)
+        took = took | better
+    return bt, bu, bv, bi, took
 
 
 def traverse_walk_ref(packed, leaf, o, d, mint, cutoff, any_hit=False,
@@ -246,13 +336,12 @@ def traverse_walk_ref(packed, leaf, o, d, mint, cutoff, any_hit=False,
     o, d: [N,3]; mint, cutoff: [N] float32 (cutoff is the initial far clip).
     Returns (id [N] int32, −1 on a miss; t, u, v [N]), plus, when
     `with_visits`, [2, N] int32: the nodes visited and the leaves tested per
-    ray. Each step reads one node row; a leaf
-    whose box is hit tests its four slots in order with strict `<` against
-    the running best (the argmin-first tie-break), or with `lowest_id` also
-    takes an equal t from a smaller triangle id (a sweep's lowest-index
-    minimum: the path kernel's medium branch). With `any_hit` (a bool, or a
-    bool [N] per ray) a ray stops at its first confirmed hit. Only the rays
-    still walking are carried from one step to the next.
+    ray. Each step reads one node row; a leaf whose box is hit tests its
+    four slots (`_test_leaves`: the first of equal t wins, or with
+    `lowest_id` the smaller triangle id, a sweep's lowest-index minimum: the
+    path kernel's medium branch). With `any_hit` (a bool, or a bool [N] per
+    ray) a ray stops at its first confirmed hit. Only the rays still walking
+    are carried from one step to the next.
     """
     n = o.shape[0]
     dev = o.device
@@ -285,26 +374,11 @@ def traverse_walk_ref(packed, leaf, o, d, mint, cutoff, any_hit=False,
             k = do_leaf.nonzero().squeeze(1)
             if with_visits:
                 visits[1, lane[k]] += 1
-            slots = leaf[fi[k] // LEAF_SIZE].reshape(-1, LEAF_SIZE, 10)
-            pids = slots[..., 9].contiguous().view(torch.int32)
-            # the leaf's slots in one broadcast test ([k, 1, 3] rays against
-            # [k, LEAF_SIZE, 3] slots: the same arithmetic per pair), then
-            # taken in slot order
-            t, u, v, h = mt_lanes(ro[k, None], rd[k, None], slots[..., 0:3], slots[..., 3:6],
-                                  slots[..., 6:9])
-            ok = h & (pids >= 0) & (t >= rmint[k, None])
-            bt, bu, bv, bi = best_t[k], best_u[k], best_v[k], best_id[k]
-            hit_any = found[k]
-            for j in range(LEAF_SIZE):
-                tj, pj = t[:, j], pids[:, j]
-                closer = (tj < bt) | ((tj == bt) & (pj < bi)) if lowest_id else tj < bt
-                better = ok[:, j] & closer
-                bt = torch.where(better, tj, bt)
-                bu = torch.where(better, u[:, j], bu)
-                bv = torch.where(better, v[:, j], bv)
-                bi = torch.where(better, pj, bi)
-                hit_any = hit_any | better
-            best_t[k], best_u[k], best_v[k], best_id[k], found[k] = bt, bu, bv, bi, hit_any
+            bt, bu, bv, bi, took = _test_leaves(leaf, fi[k] // LEAF_SIZE, ro[k], rd[k], rmint[k],
+                                                best_t[k], best_u[k], best_v[k], best_id[k],
+                                                lowest_id)
+            best_t[k], best_u[k], best_v[k], best_id[k] = bt, bu, bv, bi
+            found[k] = found[k] | took
         nxt = torch.where(hit_box & ~is_leaf, node + 1, skip)
         nxt = torch.where(found & stop, n_nodes, nxt)
         done = nxt >= n_nodes
@@ -319,6 +393,101 @@ def traverse_walk_ref(packed, leaf, o, d, mint, cutoff, any_hit=False,
             best_id, found, stop = best_id[keep], found[keep], stop[keep]
         else:
             node = nxt
+    if with_visits:
+        return out_id, out_t, out_u, out_v, visits
+    return out_id, out_t, out_u, out_v
+
+
+def traverse_pairs_ref(pairs, leaf, o, d, mint, cutoff, any_hit: bool = False,
+                       with_visits: bool = False):
+    """Plain torch walk of the child-pair table, the kernel's step for step
+    (`csrc/isect.cu: pair_step`).
+
+    pairs [n_pairs, 16] (`pack_child_pairs`), leaf [n_leaves, 40]; o, d
+    [N,3]; mint, cutoff [N] float32. Returns what `traverse_walk_ref`
+    returns; the `with_visits` rows count the pair rows read and the leaves
+    tested per ray. A step reads one pair row and slab-tests both children:
+    it goes on to the nearer child that was hit (the left one on equal near
+    t) and pushes the other with its near t onto the ray's stack
+    ([N, STACK_DEPTH] with a stack pointer), or it tests one leaf's four
+    slots (the smaller triangle id wins on equal t, so the winner does not
+    depend on the visit order: a sweep's lowest-index minimum). Then, when
+    the step found no child to go on to, it pops, dropping entries whose
+    near t lies past the best t. With `any_hit` a ray stops after the leaf
+    of its first confirmed hit. Only the rays still walking are carried from
+    one step to the next. Raises if a ray's stack would overflow.
+    """
+    n = o.shape[0]
+    dev = o.device
+    refs = pairs[:, 12:14].contiguous().view(torch.int32).long()  # left, right
+    out_id = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    out_t = cutoff.clone()
+    out_u = torch.zeros(n, dtype=torch.float32, device=dev)
+    out_v = torch.zeros(n, dtype=torch.float32, device=dev)
+    visits = torch.zeros((2, n), dtype=torch.int32, device=dev)
+
+    lane = torch.arange(n, device=dev)
+    ro, rd, rmint = o, d, mint
+    inv_d = safe_inv_dir(d)
+    cur = torch.zeros(n, dtype=torch.int64, device=dev)  # the root's pair row
+    sp = torch.zeros(n, dtype=torch.int64, device=dev)
+    st_ref = torch.zeros((n, STACK_DEPTH), dtype=torch.int64, device=dev)
+    st_near = torch.zeros((n, STACK_DEPTH), dtype=torch.float32, device=dev)
+    best_t, best_u, best_v = cutoff.clone(), out_u.clone(), out_v.clone()
+    best_id = out_id.clone()
+    found = torch.zeros(n, dtype=torch.bool, device=dev)
+    while lane.numel():
+        pop = torch.zeros_like(found)
+        done = torch.zeros_like(found)
+        inner = cur >= 0
+        k = inner.nonzero().squeeze(1)
+        if k.numel():
+            if with_visits:
+                visits[0, lane[k]] += 1
+            row, rr = pairs[cur[k]], refs[cur[k]]
+            hl, nl = _slab_near(ro[k], inv_d[k], row[:, 0:3], row[:, 3:6], rmint[k], best_t[k])
+            hr, nr = _slab_near(ro[k], inv_d[k], row[:, 6:9], row[:, 9:12], rmint[k], best_t[k])
+            both, rfirst = hl & hr, nr < nl
+            kb = k[both]
+            if kb.numel():
+                if bool((sp[kb] >= STACK_DEPTH).any()):
+                    raise ValueError(f"the tree is deeper than the pair walk's stack of "
+                                     f"{STACK_DEPTH} entries")
+                st_ref[kb, sp[kb]] = torch.where(rfirst, rr[:, 0], rr[:, 1])[both]
+                st_near[kb, sp[kb]] = torch.where(rfirst, nl, nr)[both]
+                sp[kb] += 1
+            nxt = torch.where(both, torch.where(rfirst, rr[:, 1], rr[:, 0]),
+                              torch.where(hl, rr[:, 0], rr[:, 1]))
+            cur[k] = torch.where(hl | hr, nxt, cur[k])
+            pop[k] = ~(hl | hr)
+        k = (~inner).nonzero().squeeze(1)
+        if k.numel():
+            if with_visits:
+                visits[1, lane[k]] += 1
+            bt, bu, bv, bi, took = _test_leaves(leaf, ~cur[k], ro[k], rd[k], rmint[k], best_t[k],
+                                                best_u[k], best_v[k], best_id[k], True)
+            best_t[k], best_u[k], best_v[k], best_id[k] = bt, bu, bv, bi
+            found[k] = found[k] | took
+            stop = found[k] & bool(any_hit)
+            done[k], pop[k] = stop, ~stop
+        while True:  # pop until an entry lies within the best t, or the stack is empty
+            kp = (pop & (sp > 0)).nonzero().squeeze(1)
+            if not kp.numel():
+                break
+            sp[kp] -= 1
+            ka = kp[~(st_near[kp, sp[kp]] > best_t[kp])]
+            cur[ka] = st_ref[ka, sp[ka]]
+            pop[ka] = False
+        done |= pop
+        if bool(done.any()):
+            dl = lane[done]
+            out_t[dl], out_u[dl], out_v[dl] = best_t[done], best_u[done], best_v[done]
+            out_id[dl] = best_id[done]
+            keep = ~done
+            lane, cur, sp, st_ref, st_near = (x[keep] for x in (lane, cur, sp, st_ref, st_near))
+            ro, rd, rmint, inv_d = ro[keep], rd[keep], rmint[keep], inv_d[keep]
+            best_t, best_u, best_v = best_t[keep], best_u[keep], best_v[keep]
+            best_id, found = best_id[keep], found[keep]
     if with_visits:
         return out_id, out_t, out_u, out_v, visits
     return out_id, out_t, out_u, out_v

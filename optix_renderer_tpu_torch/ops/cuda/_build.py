@@ -107,12 +107,15 @@ def load() -> ctypes.CDLL:
         lib.pathk_last_launch.argtypes = [vp] * 5  # int* medium, blocks, threads, per SM, smem
         lib.pathk_last_launch.restype = None
         lib.isect_bvh_launch.argtypes = [
-            vp, i, vp,  # packed, n_nodes, leaf
+            vp, vp,  # pairs, leaf
             vp, vp, vp, vp, i, i,  # o, d, mint, cutoff, n, any_hit
             vp, vp, vp, vp, vp,  # out id, t, u, v, visits (or null)
+            vp,  # next_ray: the kernel's uint32 ray counter, 0 at launch
             vp,  # stream
         ]
         lib.isect_bvh_launch.restype = i
+        lib.isect_bvh_last_launch.argtypes = [vp] * 3  # int* blocks, threads, per SM
+        lib.isect_bvh_last_launch.restype = None
         lib.isect_brute_launch.argtypes = [
             vp, i,  # tri [t_cnt, 9], t_cnt
             vp, vp, vp, vp, i,  # o, d, mint, cutoff, n

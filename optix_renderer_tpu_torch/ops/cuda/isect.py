@@ -4,10 +4,12 @@ Counterpart of the JAX package's intersection kernels
 (`ops/pallas/cluster.py: cluster_raw`, `ops/pallas/mxu_intersect.py:
 mxu_raw`, `ops/pallas/mt_kernel.py: _mt_pallas`), which all compute the
 closest (or any) hit of N rays against the triangle table. Two CUDA kernels
-in `csrc/isect.cu` take their place, one thread per ray:
+in `csrc/isect.cu` take their place, each ray handled by one thread:
 
-* `isect_bvh` — stackless walk of the packed LBVH (`ops/bvh.py`), closest
-  hit or any hit; plain version `ops/bvh.py: traverse_walk_ref`;
+* `isect_bvh` — walk of the LBVH's child-pair table (`ops/bvh.py:
+  pack_child_pairs`), nearest child first from a short per-ray stack, in
+  persistent warps whose lanes take their rays from a counter; closest hit
+  or any hit; plain version `ops/bvh.py: traverse_pairs_ref`;
 * `isect_brute` — sweep of every triangle in shared-memory tiles of 256;
   plain version `mt_sweep_ref` below.
 
@@ -23,7 +25,13 @@ import ctypes
 
 import torch
 
-from optix_renderer_tpu_torch.ops.bvh import BIG, mt_lanes, traverse_walk_ref
+from optix_renderer_tpu_torch.ops.bvh import (
+    BIG,
+    PAIR_COLS,
+    STACK_DEPTH,
+    mt_lanes,
+    traverse_pairs_ref,
+)
 from optix_renderer_tpu_torch.ops.cuda import _build
 
 # kernel launches by the wrappers (not by the plain versions)
@@ -114,40 +122,52 @@ def _launch(entry: str, name: str, *args, device):
     LAUNCHES[name] += 1
 
 
-def isect_bvh(packed, leaf, o, d, mint, cutoff, any_hit: bool = False,
-              with_visits: bool = False):
-    """Closest (or any) hit of the rays against the packed LBVH.
+def isect_bvh(bvh, o, d, mint, cutoff, any_hit: bool = False, with_visits: bool = False):
+    """Closest (or any) hit of the rays against the LBVH.
 
-    packed [Nn,8] and leaf [n_leaves,40] float32 (`ops/bvh.py`). Returns
-    (id, t, u, v), plus, when `with_visits`, [2, N] int32 with the nodes
-    visited and the leaves tested per ray (the diagnostic rows 4/5 of
-    `cluster_raw(debug=True)`). With `any_hit` a ray stops at its first
-    confirmed hit, so its (id, t) is *a* hit in [mint, cutoff), not the
-    nearest.
+    bvh: the scene's `scene.data.Bvh` (its `pairs` [n_pairs, 16] and `leaf`
+    [n_leaves, 40] float32, and `depth`). Returns (id, t, u, v), plus, when
+    `with_visits`, [2, N] int32 with the pair rows read and the leaves
+    tested per ray. With `any_hit` a ray stops at its first confirmed hit,
+    so its (id, t) is *a* hit in [mint, cutoff), not the nearest. Raises for
+    a tree deeper than the walk's stack (`ops/bvh.py: STACK_DEPTH`).
     """
+    if bvh.depth > STACK_DEPTH:
+        raise ValueError(f"the LBVH has {bvh.depth} levels, deeper than the pair walk's stack "
+                         f"of {STACK_DEPTH} entries")
+    pairs, leaf = bvh.pairs, bvh.leaf
     if o.device.type == "cpu":
-        return traverse_walk_ref(packed, leaf, o, d, mint, cutoff, any_hit, with_visits)
+        return traverse_pairs_ref(pairs, leaf, o, d, mint, cutoff, any_hit, with_visits)
     if o.device.type != "cuda":
         raise ValueError(f"isect_bvh runs on cpu or cuda tensors, got {o.device}")
     _check_rays(o, d, mint, cutoff)
-    for name, x, cols in (("packed", packed, 8), ("leaf", leaf, 40)):
+    for name, x, cols in (("pairs", pairs, PAIR_COLS), ("leaf", leaf, 40)):
         if (x.dim() != 2 or x.shape[1] != cols or x.dtype != torch.float32
                 or x.device != o.device or not x.is_contiguous() or x.data_ptr() % 16):
             raise ValueError(f"{name} must be a contiguous, 16-byte aligned float32 "
                              f"[rows, {cols}] tensor on {o.device}")
-    if not 0 < packed.shape[0] < 2**31:
-        raise ValueError("the LBVH must have between 1 and 2^31 - 1 nodes")
+    if not 0 < pairs.shape[0] < 2**31:
+        raise ValueError("the LBVH must have between 1 and 2^31 - 1 pair rows")
     o, d, mint, cutoff = (x.contiguous() for x in (o, d, mint, cutoff))
     n = o.shape[0]
     out = _outputs(n, o.device)
     visits = torch.empty((2, n), dtype=torch.int32, device=o.device) if with_visits else None
     if n == 0:
         return (*out, visits) if with_visits else out
+    next_ray = torch.zeros(1, dtype=torch.int32, device=o.device)
     _launch("isect_bvh_launch", "isect_bvh_any" if any_hit else "isect_bvh_closest",
-            _ptr(packed), packed.shape[0], _ptr(leaf), _ptr(o), _ptr(d), _ptr(mint),
-            _ptr(cutoff), n, int(any_hit), *(_ptr(x) for x in out), _ptr(visits),
+            _ptr(pairs), _ptr(leaf), _ptr(o), _ptr(d), _ptr(mint), _ptr(cutoff), n,
+            int(any_hit), *(_ptr(x) for x in out), _ptr(visits), _ptr(next_ray),
             device=o.device)
     return (*out, visits) if with_visits else out
+
+
+def last_launch() -> dict:
+    """The grid, block size and resident blocks per SM of the last
+    `isect_bvh` launch in this process (needs the built library)."""
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    _build.load().isect_bvh_last_launch(*(ctypes.byref(v) for v in vals))
+    return dict(zip(("blocks", "threads", "blocks_per_sm"), (v.value for v in vals)))
 
 
 def isect_brute(tri, o, d, mint, cutoff):

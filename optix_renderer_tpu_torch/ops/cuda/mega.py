@@ -143,17 +143,19 @@ def fresnel_dielectric(cos_i, ext_ior, int_ior):
 def mega_unsupported(scene, config) -> str | None:
     """Why this (scene, config) cannot run in the path kernel, or None.
 
-    The JAX package falls back to its XLA integrators for these; this
-    package has no fallback yet, so `render()` raises with the reason,
-    which names the ROADMAP item that will cover it.
+    The JAX package falls back to its XLA integrators for these, and so
+    does this package: `render()` sends such a scene to the scan path
+    (`render.scan_step`), which raises where it cannot render it either.
+    The reason only decides eligibility; it names the ROADMAP item that
+    would bring the scene into the path kernel.
     """
     g = scene.geometry
     t_cnt = int(g.tri_v0.shape[0])
     if t_cnt == 0:
         return "scenes without triangles need the general path: ROADMAP Queue 1 item 8"
     if t_cnt > MAX_MXU_TRIS:
-        return (f"{t_cnt} triangles > {MAX_MXU_TRIS}: the scan path walks the LBVH "
-                "(the walk inside the path kernel is ROADMAP Queue 1 item 7)")
+        return (f"{t_cnt} triangles > {MAX_MXU_TRIS}: the path kernel's LBVH walk takes scenes up "
+                f"to {MAX_MXU_TRIS} (larger ones in the kernel are ROADMAP Queue 1 item 7)")
     if int(g.sph_center.shape[0]) > MAX_SPHERES:
         return f"more than {MAX_SPHERES} spheres need the LBVH: ROADMAP Queue 1 item 7"
     if config.integrator not in ("path_mis", "path_mats"):

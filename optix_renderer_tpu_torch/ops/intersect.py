@@ -86,8 +86,7 @@ def _triangle_winner(geom: Geometry, ray: Ray, cutoff, any_hit: bool):
     if geom.bvh is None:
         raise ValueError(f"{n_tris} triangles need the LBVH tables (scene.data.Bvh); "
                          "build the scene with scene.build or scene_from_numpy")
-    ids, *_ = isect.isect_bvh(geom.bvh.packed, geom.bvh.leaf, ray.o, ray.d, ray.mint, cutoff,
-                              any_hit=any_hit)
+    ids, *_ = isect.isect_bvh(geom.bvh, ray.o, ray.d, ray.mint, cutoff, any_hit=any_hit)
     return ids
 
 

@@ -305,7 +305,7 @@ class _Builder:
         bvh = None
         if len(tri_v0) >= bvh_mod.MIN_TRIS_FOR_BVH:
             packed, leaf = bvh_mod.build_bvh_tables(tri_v0, tri_v1, tri_v2)
-            bvh = Bvh(packed=_t(packed), leaf=_t(leaf))
+            bvh = Bvh(packed=_t(packed), leaf=_t(leaf), pairs=_t(bvh_mod.pack_child_pairs(packed)))
         geometry = Geometry(
             tri_v0=_t(tri_v0), tri_e1=_t(tri_v1 - tri_v0), tri_e2=_t(tri_v2 - tri_v0),
             tri_n0=_t(tri_n0), tri_n1=_t(tri_n1), tri_n2=_t(tri_n2),

@@ -17,6 +17,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from optix_renderer_tpu_torch.ops import bvh as bvh_ops
+
 
 class BsdfType:
     """Mirrors BsdfData.h:11-75 tag values."""
@@ -73,6 +75,15 @@ class Bvh(_Tables):
 
     packed: torch.Tensor  # [Nn,8] f32: min(3) max(3) skip bits, first bits
     leaf: torch.Tensor  # [n_leaves,40] f32: 4 × (v0 e1 e2, id bits)
+    # [n_pairs,16] f32: the same tree as child pairs (ops/bvh.pack_child_pairs),
+    # the table of the general path's kernel
+    pairs: torch.Tensor
+    depth: int = 0  # the tree's levels (ops/bvh.pairs_depth); computed when 0
+
+    def __post_init__(self):
+        if self.depth == 0:
+            object.__setattr__(self, "depth",
+                               bvh_ops.pairs_depth(self.pairs.detach().cpu().numpy()))
 
 
 @dataclass(frozen=True)
@@ -270,7 +281,8 @@ def scene_from_numpy(tree) -> SceneData:
             "tri_uv0", "tri_uv1", "tri_uv2", "tri_tang", "sph_center", "sph_radius")},
         tri_shape=_t(g.tri_shape, i32),
         sph_shape=_t(g.sph_shape, i32),
-        bvh=Bvh(packed=_t(g.bvh.packed), leaf=_t(g.bvh.leaf)) if has_bvh else None,
+        bvh=Bvh(packed=_t(g.bvh.packed), leaf=_t(g.bvh.leaf),
+                pairs=_t(bvh_ops.pack_child_pairs(g.bvh.packed))) if has_bvh else None,
     )
     emitters = Emitters(
         **{k: _t(getattr(em, k)) for k in (

@@ -8,8 +8,9 @@ package, on the same inputs made from a numpy seed.
 * `mt_sweep_ref` against `_mt_jnp` (ids equal) and against
   `mxu_raw(interpret=True)` (ids equal on ≥ 99.9 % of the rays: the matmul
   form rounds t differently, which can reorder near-ties);
-* on CPU tensors the kernel wrappers run these plain versions and count no
-  launch.
+* on CPU tensors the kernel wrappers run their plain versions (the LBVH
+  kernel's is `traverse_pairs_ref`, tested in test_torch_isect_pairs.py) and
+  count no launch.
 
 XLA on the CPU contracts multiply-adds into FMAs and torch does not, so
 values agree to rounding, not bit for bit.
@@ -28,6 +29,7 @@ from optix_renderer_tpu.ops.pallas.mxu_intersect import build_tri_coeffs, mxu_ra
 from optix_renderer_tpu_torch.ops import bvh
 from optix_renderer_tpu_torch.ops.cuda import isect
 from optix_renderer_tpu_torch.scene import presets
+from optix_renderer_tpu_torch.scene.data import Bvh
 
 
 def _soup(rng, n):
@@ -149,14 +151,17 @@ def test_wrappers_run_the_plain_versions_on_cpu(mesh):
     T = torch.from_numpy
     rays = tuple(map(T, _rays(rng, 512)))
     tri = T(np.concatenate([v0, v1 - v0, v2 - v0], axis=1))
+    tables = Bvh(packed=T(packed), leaf=T(leaf), pairs=T(bvh.pack_child_pairs(packed)))
     before = dict(isect.LAUNCHES)
-    got = isect.isect_bvh(T(packed), T(leaf), *rays, with_visits=True)
-    ref = bvh.traverse_walk_ref(T(packed), T(leaf), *rays, with_visits=True)
+    got = isect.isect_bvh(tables, *rays, with_visits=True)
+    ref = bvh.traverse_pairs_ref(tables.pairs, tables.leaf, *rays, with_visits=True)
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
-    # nodes visited ≥ leaves tested ≥ 1 for every ray that hits
+    # every ray reads the root's pair row, which names at most two leaves,
+    # and each further row at most two more; a ray that hits tested a leaf
     visits = got[4]
-    assert visits.shape == (2, 512) and bool((visits[0] >= visits[1]).all())
+    assert visits.shape == (2, 512) and bool((visits[0] >= 1).all())
+    assert bool((visits[1] <= 2 * visits[0]).all())
     assert bool((visits[1][got[0] >= 0] >= 1).all())
     # the brute sweep finds the LBVH walk's closest hits
     brute = isect.isect_brute(tri, *rays)

@@ -255,8 +255,9 @@ def test_walk_tables_refuse_leaves_that_differ_from_the_rows():
     v0, e1, e2 = rows[:, 0:3], rows[:, 3:6], rows[:, 6:9]
     packed, leaf = bvh.build_bvh_tables(v0, v0 + e1, v0 + e2)
     assert not np.array_equal(e1, (v0 + e1) - v0)
-    as_scene = lambda p, l: SimpleNamespace(bvh=Bvh(packed=torch.from_numpy(p),
-                                                    leaf=torch.from_numpy(l)))
+    as_scene = lambda p, l: SimpleNamespace(bvh=Bvh(
+        packed=torch.from_numpy(p), leaf=torch.from_numpy(l),
+        pairs=torch.from_numpy(bvh.pack_child_pairs(p))))
     with pytest.raises(ValueError, match="differ from the triangle rows"):
         pathk._walk_tables(as_scene(packed, leaf), rows)
     exact = bvh.build_bvh_tables_from_edges(v0, e1, e2)
