@@ -25,13 +25,19 @@ Drives the port's main path (`optix_renderer_tpu_torch`, no JAX) once:
    `isect_bvh` (the child-pair walk, plain version `traverse_pairs_ref`)
    closest hit on camera rays and on cosine-distributed bounce rays, and
    any hit on shadow rays toward the light, of the 100,012-triangle
-   tessellated Cornell box (`tools/time_isect.py: config_a_rays`);
-   `isect_brute` on camera rays of the Cornell box, and on a 4,096-triangle
-   random soup so that several tiles run (ids equal on all but 1e-4 of the
-   rays, the share that differs printed, and where they differ both t agree
-   to 1e-5 relative; any-hit masks equal on all but 1e-4); the plain walks
-   are timed on those calls, and the `isect_bvh` launcher must refuse a
-   launch without its ray counter;
+   tessellated Cornell box (`tools/time_isect.py: config_a_rays`; ids equal
+   on all but 1e-4 of the rays, the share that differs printed, and where
+   they differ both t agree to 1e-5 relative; any-hit masks equal on all
+   but 1e-4); `isect_brute` on the sets of `tools/time_isect.py:
+   brute_sets` (the Cornell box's camera rays, a 64-triangle soup, and
+   camera and bounce rays of the 252-triangle box), id, t, u and v equal on
+   every ray, once more from arrays that are not 16-byte aligned, the
+   sweep's in-line reciprocal against `1.0f / x` on every float it may
+   divide by (`isect.rcp_check`), and `isect_brute` on a
+   4,096-triangle random soup, so that the table is staged tile by tile,
+   under the closest-hit gate above; the plain walks are timed on those
+   calls, and the `isect_bvh` launcher must refuse a launch without its ray
+   counter;
 8. renders config A, the tessellated Cornell box at 800x600, path_mis,
    depth 8, gaussian filter, through `render()` (1-spp warm-up, then 4 spp
    timed with the film on the host), counts the LBVH kernels' launches in
@@ -42,7 +48,14 @@ Drives the port's main path (`optix_renderer_tpu_torch`, no JAX) once:
    the same rays (its nodes and leaves per ray from `traverse_walk_ref`)
    and the pair walk's own count;
 9. renders config B, the Cornell box at 800x600 with the mitchell filter,
-   path_mis, depth 16, 4 spp, and counts `isect_brute`'s launches;
+   path_mis, depth 16, 4 spp, and config B-252, the same with the
+   252-triangle tessellated box (`nu=10, nv=7`), counting `isect_brute`'s
+   launches in each; prints ptxas' registers and spills of `brute_kernel`
+   and the instructions per ray-triangle pair of its sweep loops (SASS,
+   `tools/time_isect.py: sweep_loops`), and times it on phase 7's sets
+   (device time behind a spin, median of 7; at 12 triangles also the
+   kernel alone by torch.profiler) beside each bound, with the launch's
+   grid and resident blocks per SM;
 10. renders the golden configuration through the general path
    (`mega=False`) and holds it against tests/golden/cbox_{path_mis,path_mats}.exr;
 11. holds the path kernel's medium branch (65–8,192 triangles, an LBVH walk
@@ -87,26 +100,28 @@ from pathlib import Path
 import numpy as np
 import torch
 
+# the published H100 SXM peaks, the FP32 operations of one Moller-Trumbore
+# test and of a ray's direction reciprocal, and the bytes an intersection
+# call must move per ray (o, d, mint, cutoff in; id, t, u, v out)
+from optix_renderer_tpu_torch.tools.time_isect import (
+    OPS_MT,
+    OPS_RAY,
+    PEAK_BYTES,
+    PEAK_FP32,
+    RAY_BYTES,
+)
+
 ROOT = Path(__file__).resolve().parent
 KERNEL_SOURCE = "optix_renderer_tpu_torch/csrc/pathk.cu"
 REPLACES = "optix_renderer_tpu/ops/pallas/pathk.py:992"
 ISECT_SOURCE = "optix_renderer_tpu_torch/csrc/isect.cu"
 PROBES_SOURCE = "optix_renderer_tpu_torch/csrc/probes.cu"
-# the published H100 SXM peaks (FP32 outside the tensor cores, HBM3)
-PEAK_FP32 = 67e12
-PEAK_BYTES = 3.35e12
 # FP32 operations counted from csrc/isect.cu (and csrc/pathk.cu, mega.cuh):
-# one Moller-Trumbore test with its interval checks, one slab test of a node,
-# one pair row (two slab tests and the nearer-child compare), one sphere
-# test; the per-ray reciprocal of the direction
-OPS_MT = 52
+# one slab test of a node, one pair row (two slab tests and the
+# nearer-child compare), one sphere test
 OPS_SLAB = 25
 OPS_PAIR = 2 * OPS_SLAB + 1
 OPS_SPHERE = 39
-OPS_RAY = 9
-# bytes per ray an intersection call must move: o, d, mint, cutoff in;
-# id, t, u, v out
-RAY_BYTES = 48
 # rows of config M's 800x600 launch that phase 12 holds against the plain
 # version (its LBVH walk took 65-100 s for the 300 on an H100)
 M_REF_ROWS = 300
@@ -184,24 +199,6 @@ def timed(fn):
     ev[1].record()
     torch.cuda.synchronize()
     return out, ev[0].elapsed_time(ev[1])
-
-
-def device_ms(fn, reps: int = 5) -> dict[str, float]:
-    """Device time (ms per call) of each CUDA kernel that `fn()` launches,
-    from torch.profiler over `reps` calls after one warm-up. Unlike
-    `event_ms` it leaves out the wrapper's host time, which dominates a
-    kernel of a few microseconds."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / 1e3 / reps for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA}
 
 
 def gate_closest(what, got, ref) -> float:
@@ -295,10 +292,15 @@ def main() -> None:
     from optix_renderer_tpu_torch.tools.time_isect import (
         MAIN_RAYS,
         bounce_and_shadow_rays,
+        brute_bound,
+        brute_sets as brute_sets_of,
         camera_rays,
         config_a_rays,
         device_ms as spin_ms,
+        library_sass,
+        profiled_ms,
         ptxas_report,
+        sweep_loops,
     )
     from optix_renderer_tpu_torch.tools.time_pathk import lane_efficiency, refill_efficiency
     from optix_renderer_tpu_torch.utils.imageio import read_exr
@@ -487,13 +489,42 @@ def main() -> None:
           f"({_build.error_string(rc)})")
     scene_b, cfg_b, _ = make_cornell_box(800, 600, 4, "path_mis")
     cfg_b = dataclasses.replace(cfg_b, max_depth=16, rfilter="mitchell")
-    geom_b = scene_b.geometry.to(dev)
-    prim_b = camera_rays(scene_b, cfg_b, MAIN_RAYS, rng, dev)
-    tri_b = geom_b.tri_table
-    tris_b = (geom_b.tri_v0, geom_b.tri_e1, geom_b.tri_e2)
-    err_brute = gate_closest("isect_brute, Cornell triangles, camera rays",
-                             isect.isect_brute(tri_b, *prim_b),
-                             isect.mt_sweep_ref(*prim_b, *tris_b))
+    # isect_brute at 480,000 rays against 12, 64 and 252 triangles: id, t, u
+    # and v equal to the plain version's on every ray (the sweep's
+    # arithmetic is mt_sweep_ref's, built without FMA contraction); then one
+    # set again from arrays that are not 16-byte aligned, which the wrapper
+    # sends to the instantiation that reads one float at a time
+    brute_sets = brute_sets_of(isect, dev, rng)
+
+    def brute_equal(what, tri, rays):
+        got = isect.isect_brute(tri, *rays)
+        ref = isect.mt_sweep_ref(*rays, tri[:, 0:3], tri[:, 3:6], tri[:, 6:9])
+        torch.cuda.synchronize()
+        bad = [int((a != b).sum()) for a, b in zip(got, ref)]
+        print(f"  isect_brute, {what}: {rays[0].shape[0]} rays x {tri.shape[0]} triangles, hits "
+              f"{float((ref[0] >= 0).float().mean()):.4f}, rays whose id, t, u, v differ from "
+              f"the plain version {bad}; launch {isect.last_launch('brute')}", flush=True)
+        if any(bad):
+            raise AssertionError(f"isect_brute, {what}: differs from mt_sweep_ref on {bad} rays")
+        return float((got[1] - ref[1]).abs().max())
+
+    err_brute = max(brute_equal(name, tri, rays) for name, (tri, rays) in brute_sets.items())
+    # the sweep's in-line reciprocal equals `1.0f / x` on every float where
+    # it is used (all 2^32 bit patterns are visited)
+    rcp = isect.rcp_check(dev)
+    print(f"  in-line reciprocal (csrc/walk.cuh: rcp_fast) against 1.0f / x: {rcp}")
+    if not (rcp["tested"] == 2**32 - 2**26 and rcp["differ"] == 0):
+        raise AssertionError(f"rcp_fast differs from 1.0f / x: {rcp}")
+
+    def unaligned(x):
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+        view = buf[1:].view(x.shape)
+        view.copy_(x)
+        return view
+
+    tri_252, rays_252 = brute_sets["t252_camera"]
+    brute_equal("t252_camera from unaligned arrays", tri_252,
+                tuple(unaligned(x) for x in rays_252))
     soup = tuple(torch.from_numpy(x.astype(np.float32)).to(dev) for x in (
         rng.uniform(-1, 1, (4096, 3)), rng.normal(0, 0.2, (4096, 3)),
         rng.normal(0, 0.2, (4096, 3))))
@@ -621,17 +652,58 @@ def main() -> None:
         raise AssertionError(f"config B launched isect_brute no time: {launches_b}")
     if not (np.isfinite(comp).all() and comp.shape == (600, 800, 3) and comp.mean() > 0):
         raise AssertionError("config B film is not finite / positive")
-    brute_dev = device_ms(lambda: isect.isect_brute(tri_b, *prim_b))
-    ms_brute = sum(v for k, v in brute_dev.items() if "brute_kernel" in k)
+    # config B-252: the same at 252 triangles, still below the LBVH's 257
+    scene_b252, cfg_b252, _ = make_tessellated_cornell(800, 600, 4, "path_mis", nu=10, nv=7)
+    cfg_b252 = dataclasses.replace(cfg_b252, max_depth=16, rfilter="mitchell")
+    render(scene_b252, cfg_b252, sample_count=1, device=dev)  # warm-up
+    for k in isect.LAUNCHES:
+        isect.LAUNCHES[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out_b252 = render(scene_b252, cfg_b252, sample_count=4, device=dev)
+    dt_b252 = time.time() - t0
+    launches_b252 = dict(isect.LAUNCHES)
+    comp = out_b252["composite"]
+    print(f"  config B-252 800x600 mitchell path_mis depth 16, 4 spp: {dt_b252:.4f} s, "
+          f"{800 * 600 * 4 / dt_b252 / 1e6:.4f} Mpaths/s on {smi}; launches {launches_b252}; "
+          f"film mean {comp.mean():.5f}")
+    if not (launches_b252["isect_brute"] > 0 and launches_b252["isect_bvh_closest"] == 0):
+        raise AssertionError(f"config B-252 did not take isect_brute: {launches_b252}")
+    if not (np.isfinite(comp).all() and comp.shape == (600, 800, 3) and comp.mean() > 0):
+        raise AssertionError("config B-252 film is not finite / positive")
+    # the kernel on phase 7's sets: device time behind a spin, median of 7,
+    # beside its bound; ptxas' registers and spills of its instances and
+    # the launch's grid
+    brute_regs = {k: v for k, v in ptxas_report(info.get("ptxas", "")).items()
+                  if "brute_kernel" in k}
+    if not brute_regs:
+        raise AssertionError("ptxas reported no brute_kernel instance")
+    print(f"  isect_brute brute_kernel: {brute_regs}")
+    # instructions per ray-triangle pair on the sweep loops' fast path (SASS)
+    brute_loops = {k: [round(lp["per_pair"], 2) for lp in v]
+                   for k, v in sweep_loops(library_sass(info["path"])).items()}
+    print(f"  isect_brute instructions per ray-triangle pair (tiled, resident loop): {brute_loops}")
+    brute_rows = {}
+    for name, (tri, rays) in brute_sets.items():
+        ms = float(np.median(spin_ms(lambda: isect.isect_brute(tri, *rays), 7)))
+        brute_rows[name] = {"ms": ms, **brute_bound(rays[0].shape[0], tri.shape[0]),
+                            "launch": isect.last_launch("brute")}
+        r = brute_rows[name]
+        print(f"  isect_brute {name}, {rays[0].shape[0]} rays x {tri.shape[0]} triangles: "
+              f"{ms:.4f} ms (bound {r['bound_ms']:.4f} ms, {r['bound_by']}; without FMA "
+              f"{r['fmad_free_ms']:.4f} ms); launch {r['launch']} on {smi}")
+    # at the main path's 12 triangles: the kernel alone (torch.profiler),
+    # the whole wrapper call and the plain version
+    tri_b, prim_b = brute_sets["t12_camera"]
+    b_brute = (brute_rows["t12_camera"]["bound_ms"], brute_rows["t12_camera"]["bound_by"])
+    ms_brute = profiled_ms(lambda: isect.isect_brute(tri_b, *prim_b), 7, "brute_kernel")
     wrapper_brute = event_ms(lambda: isect.isect_brute(tri_b, *prim_b), reps=5)
-    plain_brute = event_ms(lambda: isect.mt_sweep_ref(*prim_b, *tris_b))
-    t_b = tri_b.shape[0]
-    b_brute = bound(MAIN_RAYS * t_b * OPS_MT + MAIN_RAYS * OPS_RAY,
-                    MAIN_RAYS * RAY_BYTES + t_b * 36)
-    print(f"  isect_brute, {MAIN_RAYS} rays x {t_b} triangles: kernel {ms_brute:.4f} ms (bound "
-          f"{b_brute[0]:.4f} ms, {b_brute[1]}), whole wrapper call {wrapper_brute:.4f} ms; "
-          f"plain version {plain_brute:.3f} ms on {smi}")
-    phase(9, f"config B: {800 * 600 * 4 / dt_b / 1e6:.4f} Mpaths/s, launches {launches_b}")
+    plain_brute = event_ms(lambda: isect.mt_sweep_ref(*prim_b, tri_b[:, 0:3], tri_b[:, 3:6],
+                                                      tri_b[:, 6:9]))
+    print(f"  isect_brute t12_camera: kernel {ms_brute:.4f} ms (torch.profiler), whole "
+          f"wrapper call {wrapper_brute:.4f} ms; plain version {plain_brute:.3f} ms on {smi}")
+    phase(9, f"config B: {800 * 600 * 4 / dt_b / 1e6:.4f} Mpaths/s, launches {launches_b}; "
+             f"config B-252: {800 * 600 * 4 / dt_b252 / 1e6:.4f} Mpaths/s, launches {launches_b252}")
 
     # ---- 10. the general path against the goldens (tools/gen_golden.py config)
     for integ in ("path_mis", "path_mats"):
@@ -852,7 +924,11 @@ def main() -> None:
             shadow=bvh_rows["any_shadow"], ptxas=bvh_regs),
         row("isect_brute", ISECT_SOURCE, "optix_renderer_tpu/ops/pallas/mxu_intersect.py:195",
             launches_b["isect_brute"], err_brute, ms_brute, plain_brute, b_brute, rays=MAIN_RAYS,
-            also_replaces="optix_renderer_tpu/ops/pallas/mt_kernel.py:140"),
+            also_replaces="optix_renderer_tpu/ops/pallas/mt_kernel.py:140",
+            kernel="brute_kernel (persistent blocks, table staged once, 4 rays per thread)",
+            shape=f"{MAIN_RAYS} rays x 12 triangles, kernel alone (torch.profiler)",
+            wrapper_ms=wrapper_brute, sets=brute_rows, launches_b252=launches_b252["isect_brute"],
+            ptxas=brute_regs, instructions_per_pair=brute_loops),
         row("pathk_trace_medium", KERNEL_SOURCE, REPLACES, launches_m, err_medium, medium_ms,
             medium_plain_ms, walk_bound, branch="MXU, optix_renderer_tpu/ops/pallas/pathk.py:622",
             kernel="pathk_staged_kernel<MIS> (LBVH walk, csrc/walk.cuh)",

@@ -42,10 +42,24 @@
 //         slowest ray ends. On an H100 this gave most of the gain over the
 //         skip-link walk; a stack in shared memory, the top rows staged in
 //         shared memory and rays sorted first did not pay (PERF.md §6).
-//   * isect_brute: FP32 ALU work, ~40 operations per ray-triangle pair. A
-//     block stages tiles of up to 256 triangles (v0, e1, e2) in shared memory
-//     and every thread of the block sweeps the same tile, so the table is
-//     read from device memory once per block and each read is a broadcast.
+//   * isect_brute: instruction issue. Without FMA contraction a
+//     ray-triangle pair is 27 FMUL and 18 FADD, plus the division and the
+//     hit test; the rays move only 48 bytes each, so even at 12 triangles
+//     the sweep issues more instructions than its bytes take to arrive
+//     (PERF.md §6). The design:
+//       - persistent blocks (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+//         that stage a table of up to TILE triangles once in shared memory,
+//         as 48-byte rows read by three 16-byte broadcast loads, and take
+//         batches of rays by grid stride; a larger table is staged tile by
+//         tile;
+//       - four consecutive rays per thread, read and written as 16-byte
+//         vectors where the arrays are aligned, so a staged row serves four
+//         rays;
+//       - the division's fast path in line (walk.cuh: rcp_fast) with one
+//         warp vote per row for the slow path: `1.0f / x` branches to its
+//         slow path after every fast path, which split each ray's
+//         arithmetic into its own basic block. With the branch, four rays
+//         per thread ran no faster than one (PERF.md §6).
 //
 // Contract (ops/cuda/isect.py; plain versions ops/bvh.py: traverse_pairs_ref
 // and ops/cuda/isect.py: mt_sweep_ref): o, d [N,3], mint, cutoff [N] float32
@@ -65,20 +79,62 @@
 
 namespace isect {
 
-constexpr int TILE = 256;       // triangles per shared-memory tile of the sweep
+constexpr int TILE = 256;       // triangles a block of the sweep stages at once
+constexpr int TRI_COLS = 12;    // a staged row: v0 3, e1 3, e2 3, pad 3
+constexpr int BRUTE_THREADS = 128;  // threads per persistent block of the sweep
+constexpr int BRUTE_RAYS = 4;   // consecutive rays per thread of the sweep
 constexpr int PAIR_COLS = 16;   // left min 3 max 3 | right min 3 max 3 | refs 2 | pad 2
 constexpr int STACK_DEPTH = 24; // ops/bvh.py: STACK_DEPTH; deeper trees are refused
 
-// One ray against `cnt` triangles of a [cnt, 9] tile whose first triangle
-// has global index `base` (ops/cuda/isect.py: mt_sweep_ref).
-HD void sweep(const float* tile, int base, int cnt, const RayIn& r, Best& b) {
+// Rows [base, base + cnt) of tri [T, 9] as staged rows of TRI_COLS
+// floats: v0 e1 e2 and three pad columns, so that a row is three 16-byte
+// loads. k0 / step: this thread's first element and the stride between
+// its elements (threadIdx.x / blockDim.x on the card, 0 / 1 on a host).
+HD void stage_rows(const float* tri, int base, int cnt, float* tile, int k0, int step) {
+  for (int k = k0; k < cnt * 9; k += step)
+    tile[(k / 9) * TRI_COLS + k % 9] = tri[(size_t)base * 9 + k];
+}
+
+// true where p holds on some active lane of the warp (on a host: p)
+HD bool any_lane(bool p) {
+#ifdef __CUDA_ARCH__
+  return __any_sync(__activemask(), p);
+#else
+  return p;
+#endif
+}
+
+// BRUTE_RAYS rays against `cnt` rows staged in shared memory whose first
+// triangle has global index `base` (ops/cuda/isect.py: mt_sweep_ref): each
+// row is read once and tested against all the rays; each ray takes the rows
+// in ascending order with strict <, so it keeps the lowest-index minimum.
+// The divisions take rcp_fast, without a branch; a row is divided again
+// with `1.0f / x` only where a lane's divisor fails rcp_in_range (one vote
+// per row), so t, u and v are mt's.
+HD void sweep_rays(const float* tile, int base, int cnt, const RayIn* r, Best* b) {
+  constexpr int R = BRUTE_RAYS;
   for (int j = 0; j < cnt; ++j) {
-    float t, u, v;
-    if (mt(r, tile + 9 * j, t, u, v) && t >= r.mint && t < b.t) {
-      b.t = t;
-      b.u = u;
-      b.v = v;
-      b.id = base + j;
+    float tri[TRI_COLS];
+    for (int k = 0; k < TRI_COLS; k += 4)
+      load4<true>(tile + (size_t)TRI_COLS * j + k, tri + k);
+    MtNum m[R];
+    float inv[R];
+    bool slow = false;
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      m[q] = mt_num(r[q], tri);
+      inv[q] = rcp_fast(mt_divisor(m[q]));
+      slow |= !rcp_in_range(mt_divisor(m[q]));
+    }
+    if (any_lane(slow)) {
+#pragma unroll
+      for (int q = 0; q < R; ++q) inv[q] = 1.0f / mt_divisor(m[q]);
+    }
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      float t, u, v;
+      if (mt_hit(m[q], inv[q], t, u, v) && t >= r[q].mint && t < b[q].t)
+        b[q] = Best{t, u, v, base + j};
     }
   }
 }
@@ -269,33 +325,118 @@ __global__ void __launch_bounds__(BVH_THREADS)
   }
 }
 
-__global__ void __launch_bounds__(TILE)
+// BRUTE_RAYS consecutive rays from i0 on: with VEC (the arrays 16-byte
+// aligned) as 16-byte loads, three each of o and d and one each of mint and
+// cutoff, all issued before the sweep; else one float at a time. Rays past
+// n are zero rays, which no triangle hits, and are not stored.
+template <bool VEC>
+__device__ __forceinline__ void load_rays(const float* __restrict__ o, const float* __restrict__ d,
+                                          const float* __restrict__ mint,
+                                          const float* __restrict__ cutoff, int n, int i0,
+                                          RayIn* r, Best* b) {
+  constexpr int R = BRUTE_RAYS;
+  if (VEC && i0 + R <= n) {
+    float of[3 * R], df[3 * R], mf[R], cf[R];
+    for (int k = 0; k < 3 * R; k += 4) {
+      load4(o + 3 * (size_t)i0 + k, of + k);
+      load4(d + 3 * (size_t)i0 + k, df + k);
+    }
+    load4(mint + i0, mf);
+    load4(cutoff + i0, cf);
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      r[q] = RayIn{of[3 * q], of[3 * q + 1], of[3 * q + 2], df[3 * q], df[3 * q + 1],
+                   df[3 * q + 2], mf[q]};
+      b[q] = Best{cf[q], 0.0f, 0.0f, -1};
+    }
+    return;
+  }
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const int i = i0 + q;
+    r[q] = i < n ? ray_at(o, d, mint, i) : RayIn{};
+    b[q] = Best{i < n ? __ldg(cutoff + i) : 0.0f, 0.0f, 0.0f, -1};
+  }
+}
+
+template <bool VEC>
+__device__ __forceinline__ void store_rays(const Best* b, int n, int i0, int* __restrict__ out_id,
+                                           float* __restrict__ out_t, float* __restrict__ out_u,
+                                           float* __restrict__ out_v) {
+  if (VEC && i0 + BRUTE_RAYS <= n) {
+    *reinterpret_cast<int4*>(out_id + i0) = make_int4(b[0].id, b[1].id, b[2].id, b[3].id);
+    *reinterpret_cast<float4*>(out_t + i0) = make_float4(b[0].t, b[1].t, b[2].t, b[3].t);
+    *reinterpret_cast<float4*>(out_u + i0) = make_float4(b[0].u, b[1].u, b[2].u, b[3].u);
+    *reinterpret_cast<float4*>(out_v + i0) = make_float4(b[0].v, b[1].v, b[2].v, b[3].v);
+    return;
+  }
+#pragma unroll
+  for (int q = 0; q < BRUTE_RAYS; ++q) {
+    const int i = i0 + q;
+    if (i < n) {
+      out_id[i] = b[q].id;
+      out_t[i] = b[q].t;
+      out_u[i] = b[q].u;
+      out_v[i] = b[q].v;
+    }
+  }
+}
+
+// Persistent: the grid fills the card once and each block takes batches of
+// BRUTE_THREADS x BRUTE_RAYS rays by grid stride, so every thread of a
+// block runs the same batches and may meet at __syncthreads, and every
+// lane sweeps (the vote in sweep_rays sees whole warps). A table of up to
+// TILE triangles is staged once per block before the first batch; a larger
+// one is staged tile by tile in every batch.
+template <bool VEC>
+__global__ void __launch_bounds__(BRUTE_THREADS)
     brute_kernel(const float* __restrict__ tri, int t_cnt, const float* __restrict__ o,
                  const float* __restrict__ d, const float* __restrict__ mint,
                  const float* __restrict__ cutoff, int n, int* __restrict__ out_id,
                  float* __restrict__ out_t, float* __restrict__ out_u,
                  float* __restrict__ out_v) {
-  __shared__ float tile[TILE * 9];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = i < n;
-  RayIn r = {};
-  Best b = {0.0f, 0.0f, 0.0f, -1};
-  if (live) {
-    r = ray_at(o, d, mint, i);
-    b.t = cutoff[i];
-  }
-  for (int base = 0; base < t_cnt; base += TILE) {
-    const int cnt = min(TILE, t_cnt - base);
-    for (int k = threadIdx.x; k < cnt * 9; k += blockDim.x) tile[k] = tri[(size_t)base * 9 + k];
-    __syncthreads();
-    if (live) sweep(tile, base, cnt, r, b);
+  constexpr int R = BRUTE_RAYS, BATCH = BRUTE_THREADS * BRUTE_RAYS;
+  __shared__ __align__(16) float tile[TILE * TRI_COLS];
+  const bool resident = t_cnt <= TILE;
+  if (resident) {
+    stage_rows(tri, 0, t_cnt, tile, threadIdx.x, BRUTE_THREADS);
     __syncthreads();
   }
-  if (!live) return;
-  out_id[i] = b.id;
-  out_t[i] = b.t;
-  out_u[i] = b.u;
-  out_v[i] = b.v;
+  const int n_batches = (n + BATCH - 1) / BATCH;
+  for (int batch = blockIdx.x; batch < n_batches; batch += gridDim.x) {
+    const int i0 = batch * BATCH + threadIdx.x * R;
+    RayIn r[R];
+    Best b[R];
+    load_rays<VEC>(o, d, mint, cutoff, n, i0, r, b);
+    if (resident) {
+      sweep_rays(tile, 0, t_cnt, r, b);
+    } else {
+      for (int base = 0; base < t_cnt; base += TILE) {
+        const int cnt = min(TILE, t_cnt - base);
+        __syncthreads();
+        stage_rows(tri, base, cnt, tile, threadIdx.x, BRUTE_THREADS);
+        __syncthreads();
+        sweep_rays(tile, base, cnt, r, b);
+      }
+    }
+    store_rays<VEC>(b, n, i0, out_id, out_t, out_u, out_v);
+  }
+}
+
+// rcp_fast against `1.0f / x` on every float x with 2^-126 <= |x| < 2^126,
+// bit for bit: counts[0] += the floats tested, counts[1] += those that differ
+__global__ void rcp_check_kernel(unsigned long long* counts) {
+  unsigned long long tested = 0, differ = 0;
+  for (unsigned long long i = blockIdx.x * (unsigned long long)blockDim.x + threadIdx.x;
+       i < (1ull << 32); i += (unsigned long long)gridDim.x * blockDim.x) {
+    const float x = __uint_as_float((uint32_t)i);
+    if (!(fabsf(x) >= 0x1p-126f && fabsf(x) < 0x1p126f)) continue;
+    volatile float y = x;  // keeps 1.0f / y the compiler's own division
+    ++tested;
+    differ += __float_as_uint(1.0f / y) != __float_as_uint(rcp_fast(x));
+  }
+  atomicAdd(counts, tested);
+  atomicAdd(counts + 1, differ);
 }
 #endif
 
@@ -360,15 +501,70 @@ extern "C" void isect_bvh_last_launch(int* blocks, int* threads, int* blocks_per
   *blocks_per_sm = g_bvh_last.blocks_per_sm;
 }
 
-// tri [t_cnt, 9] = v0 e1 e2 per row
+namespace {
+BvhLaunch g_brute_last = {0, 0, 0};
+
+// persistent blocks: as many as fit on the card at once, at most one per
+// batch of BRUTE_THREADS x BRUTE_RAYS rays
+template <typename K>
+cudaError_t launch_brute(K kernel, const float* tri, int t_cnt, const float* o, const float* d,
+                         const float* mint, const float* cutoff, int n, int* out_id,
+                         float* out_t, float* out_u, float* out_v, cudaStream_t s) {
+  const int threads = isect::BRUTE_THREADS, batch = threads * isect::BRUTE_RAYS;
+  int dev = 0, n_sm = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  if (e != cudaSuccess) return e;
+  const int need = (n + batch - 1) / batch;
+  const int fit = n_sm * (per_sm > 1 ? per_sm : 1);
+  const int blocks = need < fit ? need : fit;
+  g_brute_last = BvhLaunch{blocks, threads, per_sm};
+  kernel<<<blocks, threads, 0, s>>>(tri, t_cnt, o, d, mint, cutoff, n, out_id, out_t, out_u,
+                                    out_v);
+  return cudaSuccess;
+}
+}  // namespace
+
+// tri [t_cnt, 9] = v0 e1 e2 per row; vec: o, d, mint, cutoff and the outputs
+// are 16-byte aligned (the wrapper checks), so the rays are read and written
+// as 16-byte vectors (a vec launch on unaligned arrays is refused)
 extern "C" int isect_brute_launch(const float* tri, int t_cnt, const float* o, const float* d,
-                                  const float* mint, const float* cutoff, int n, int* out_id,
-                                  float* out_t, float* out_u, float* out_v, void* stream) {
-  const int blocks = (n + isect::TILE - 1) / isect::TILE;
+                                  const float* mint, const float* cutoff, int n, int vec,
+                                  int* out_id, float* out_t, float* out_u, float* out_v,
+                                  void* stream) {
+  const bool aligned = ((uintptr_t)o | (uintptr_t)d | (uintptr_t)mint | (uintptr_t)cutoff |
+                        (uintptr_t)out_id | (uintptr_t)out_t | (uintptr_t)out_u |
+                        (uintptr_t)out_v) % 16 == 0;
+  if (vec && !aligned) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (n > 0)
-    isect::brute_kernel<<<blocks, isect::TILE, 0, s>>>(tri, t_cnt, o, d, mint, cutoff, n,
-                                                       out_id, out_t, out_u, out_v);
+  if (n > 0) {
+    const cudaError_t e =
+        vec ? launch_brute(isect::brute_kernel<true>, tri, t_cnt, o, d, mint, cutoff, n, out_id,
+                           out_t, out_u, out_v, s)
+            : launch_brute(isect::brute_kernel<false>, tri, t_cnt, o, d, mint, cutoff, n, out_id,
+                           out_t, out_u, out_v, s);
+    if (e != cudaSuccess) return (int)e;
+  }
   return (int)cudaGetLastError();
+}
+
+// counts [2] (uint64, zeroed by the caller): the floats rcp_check_kernel
+// tested and those where rcp_fast differs from 1.0f / x
+extern "C" int isect_rcp_check_launch(unsigned long long* counts, void* stream) {
+  int dev = 0, n_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  isect::rcp_check_kernel<<<n_sm * 8, 256, 0, (cudaStream_t)stream>>>(counts);
+  return (int)cudaGetLastError();
+}
+
+// the grid, block size and resident blocks per SM of the last isect_brute
+// launch
+extern "C" void isect_brute_last_launch(int* blocks, int* threads, int* blocks_per_sm) {
+  *blocks = g_brute_last.blocks;
+  *threads = g_brute_last.threads;
+  *blocks_per_sm = g_brute_last.blocks_per_sm;
 }
 #endif

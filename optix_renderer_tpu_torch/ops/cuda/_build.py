@@ -119,10 +119,15 @@ def load() -> ctypes.CDLL:
         lib.isect_brute_launch.argtypes = [
             vp, i,  # tri [t_cnt, 9], t_cnt
             vp, vp, vp, vp, i,  # o, d, mint, cutoff, n
+            i,  # vec: the rays' arrays are 16-byte aligned (vector loads)
             vp, vp, vp, vp,  # out id, t, u, v
             vp,  # stream
         ]
         lib.isect_brute_launch.restype = i
+        lib.isect_brute_last_launch.argtypes = [vp] * 3  # int* blocks, threads, per SM
+        lib.isect_brute_last_launch.restype = None
+        lib.isect_rcp_check_launch.argtypes = [vp, vp]  # uint64 counts [2], stream
+        lib.isect_rcp_check_launch.restype = i
         lib.probe_copy_launch.argtypes = [vp, vp, vp, vp]  # x, sel, out, stream
         lib.probe_copy_launch.restype = i
         lib.iter_cost_launch.argtypes = [

@@ -4,14 +4,16 @@ Counterpart of the JAX package's intersection kernels
 (`ops/pallas/cluster.py: cluster_raw`, `ops/pallas/mxu_intersect.py:
 mxu_raw`, `ops/pallas/mt_kernel.py: _mt_pallas`), which all compute the
 closest (or any) hit of N rays against the triangle table. Two CUDA kernels
-in `csrc/isect.cu` take their place, each ray handled by one thread:
+in `csrc/isect.cu` take their place:
 
 * `isect_bvh` — walk of the LBVH's child-pair table (`ops/bvh.py:
   pack_child_pairs`), nearest child first from a short per-ray stack, in
   persistent warps whose lanes take their rays from a counter; closest hit
   or any hit; plain version `ops/bvh.py: traverse_pairs_ref`;
-* `isect_brute` — sweep of every triangle in shared-memory tiles of 256;
-  plain version `mt_sweep_ref` below.
+* `isect_brute` — sweep of every triangle: persistent blocks that stage a
+  table of up to 256 triangles once in shared memory (larger ones tile by
+  tile), each thread testing four consecutive rays against each staged
+  triangle; plain version `mt_sweep_ref` below.
 
 Both take o, d [N,3] and mint, cutoff [N] float32 and return (id [N] int32,
 −1 on a miss; t, u, v [N] float32; t = cutoff on a miss). A CPU tensor runs
@@ -162,33 +164,53 @@ def isect_bvh(bvh, o, d, mint, cutoff, any_hit: bool = False, with_visits: bool 
     return (*out, visits) if with_visits else out
 
 
-def last_launch() -> dict:
+def last_launch(kernel: str = "bvh") -> dict:
     """The grid, block size and resident blocks per SM of the last
-    `isect_bvh` launch in this process (needs the built library)."""
+    `isect_bvh` (or, with kernel="brute", `isect_brute`) launch in this
+    process (needs the built library)."""
     vals = [ctypes.c_int(0) for _ in range(3)]
-    _build.load().isect_bvh_last_launch(*(ctypes.byref(v) for v in vals))
+    getattr(_build.load(), f"isect_{kernel}_last_launch")(*(ctypes.byref(v) for v in vals))
     return dict(zip(("blocks", "threads", "blocks_per_sm"), (v.value for v in vals)))
+
+
+def rcp_check(device) -> dict:
+    """The sweep's in-line reciprocal (csrc/walk.cuh: rcp_fast) against the
+    compiler's `1.0f / x` on every float of 2^-126 <= |x| < 2^126, on the
+    card: {"tested": floats, "differ": floats whose bits differ}."""
+    counts = torch.zeros(2, dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = _build.load().isect_rcp_check_launch(_ptr(counts), ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"rcp check launch failed: cudaError {rc} ({_build.error_string(rc)})")
+    tested, differ = counts.tolist()
+    return {"tested": tested, "differ": differ}
 
 
 def isect_brute(tri, o, d, mint, cutoff):
     """Closest hit of the rays against every triangle of `tri` [T,9] float32,
-    v0 | e1 | e2 per row (`scene.data.Geometry.tri_table`)."""
-    if o.device.type == "cpu":
-        return mt_sweep_ref(o, d, mint, cutoff, tri[:, 0:3], tri[:, 3:6], tri[:, 6:9])
-    if o.device.type != "cuda":
+    v0 | e1 | e2 per row (`scene.data.Geometry.tri_table`). The inputs are
+    checked on either device; a CPU tensor then runs `mt_sweep_ref`."""
+    if o.device.type not in ("cpu", "cuda"):
         raise ValueError(f"isect_brute runs on cpu or cuda tensors, got {o.device}")
     _check_rays(o, d, mint, cutoff)
-    t_cnt = tri.shape[0]
+    t_cnt = tri.shape[0] if tri.dim() == 2 else -1
     if not 0 < t_cnt < 2**31 // 9:
-        raise ValueError(f"isect_brute takes 1 to {2**31 // 9 - 1} triangles, got {t_cnt}")
+        raise ValueError(f"isect_brute takes 1 to {2**31 // 9 - 1} triangles as [T, 9], got "
+                         f"{tuple(tri.shape)}")
     if (tri.shape != (t_cnt, 9) or tri.dtype != torch.float32 or tri.device != o.device
             or not tri.is_contiguous()):
         raise ValueError(f"tri must be a contiguous float32 [T, 9] tensor on {o.device}")
+    if o.device.type == "cpu":
+        return mt_sweep_ref(o, d, mint, cutoff, tri[:, 0:3], tri[:, 3:6], tri[:, 6:9])
     o, d, mint, cutoff = (x.contiguous() for x in (o, d, mint, cutoff))
     n = o.shape[0]
     out = _outputs(n, o.device)
     if n == 0:
         return out
+    # 16-byte aligned rays are read as vector loads, else one float at a time
+    vec = all(x.data_ptr() % 16 == 0 for x in (o, d, mint, cutoff, *out))
     _launch("isect_brute_launch", "isect_brute", _ptr(tri), t_cnt, _ptr(o),
-            _ptr(d), _ptr(mint), _ptr(cutoff), n, *(_ptr(x) for x in out), device=o.device)
+            _ptr(d), _ptr(mint), _ptr(cutoff), n, int(vec), *(_ptr(x) for x in out),
+            device=o.device)
     return out

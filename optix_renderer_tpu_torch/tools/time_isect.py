@@ -1,32 +1,43 @@
-"""Device time of the general path's LBVH kernels on config A (needs a CUDA GPU):
+"""Device time of the general path's intersection kernels (needs a CUDA GPU):
 
-    python3 optix_renderer_tpu_torch/tools/time_isect.py [--root DIR] [--reps N]
+    python3 optix_renderer_tpu_torch/tools/time_isect.py [--root DIR] [--reps N] [--brute]
 
-Builds config A's LBVH (`make_tessellated_cornell` at 800x600: 100,012
-triangles) and the three ray sets of `chip_smoke.py` phase 7 from a numpy
-seed: 480,000 camera rays through random film positions, and 480,000
-cosine-distributed bounce rays and 480,000 shadow rays toward the ceiling
-light from the first hits of 600,000 further camera rays. Then times
-`isect_bvh` closest hit on the camera and the bounce rays and any hit on
-the shadow rays: CUDA events around each launch, `reps` launches after a
-warm-up, their median and each of them. Beside each it prints the rows (or
-nodes) read and the leaves tested per ray, and ptxas' registers and spills
-of the kernel instances. Then the renders around the kernel, end to end on
-the host's clock with the film on the host, `reps` times after a warm-up:
+Without `--brute`: builds config A's LBVH (`make_tessellated_cornell` at
+800x600: 100,012 triangles) and the three ray sets of `chip_smoke.py`
+phase 7 from a numpy seed: 480,000 camera rays through random film
+positions, and 480,000 cosine-distributed bounce rays and 480,000 shadow
+rays toward the ceiling light from the first hits of 600,000 further
+camera rays. Then times `isect_bvh` closest hit on the camera and the
+bounce rays and any hit on the shadow rays. Beside each it prints the rows
+(or nodes) read and the leaves tested per ray, and ptxas' registers and
+spills of the kernel instances. Then the renders around the kernel:
 config A (4 spp, depth 8, gaussian), `bench.py`'s 400x300 config of the
 same scene, and config M (the 8,012-triangle scene of the path kernel's
-medium branch, 16 spp, depth 16), which shares the scene build. `--root`
-imports the package from another
-checkout (for instance a parent commit unpacked with `git archive`), so
-that two versions can be timed in one run on one card; a checkout whose
-`isect_bvh` takes the packed skip-link table (before the child-pair walk)
-is called that way. Prints one JSON line with the card's name and power
-limit.
+medium branch, 16 spp, depth 16), which shares the scene build.
+
+With `--brute`: times `isect_brute`, the brute-force sweep, on 480,000 rays
+against 12, 64 and 252 triangles (`brute_sets`), each beside its bound,
+and counts the instructions per ray-triangle pair of its sweep loops in
+the built library's SASS (`sweep_loops`, where the toolkit has
+`cuobjdump`); then the renders that run it: config B (the Cornell box,
+mitchell filter, 800x600, depth 16, 4 spp) and config B-252 (the same at
+252 triangles, `make_tessellated_cornell(..., nu=10, nv=7)`).
+
+Kernel times are device time: CUDA events around each launch behind a
+spin (`device_ms`), `reps` launches after a warm-up, their median and
+each of them. Renders run end to end on the host's clock with the film on
+the host, `reps` times after a warm-up. `--root` imports the package from
+another checkout (for instance a parent commit unpacked with `git
+archive`), so that two versions can be timed in one run on one card; a
+checkout whose `isect_bvh` takes the packed skip-link table (before the
+child-pair walk) is called that way. Prints one JSON line with the card's
+name and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import re
 import subprocess
@@ -37,6 +48,28 @@ import numpy as np
 
 # rays per launch: one per pixel of an 800x600 film
 MAIN_RAYS = 800 * 600
+# the published H100 SXM peaks (FP32 outside the tensor cores, HBM3); the
+# FP32 operations of one Moller-Trumbore test with its interval checks
+# (csrc/walk.cuh: mt) and of a ray's direction reciprocal; the bytes an
+# intersection call must move per ray: o, d, mint, cutoff in, id, t, u, v out
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+OPS_MT = 52
+OPS_RAY = 9
+RAY_BYTES = 48
+
+
+def brute_bound(n: int, t_cnt: int) -> dict:
+    """The least time of `isect_brute` on n rays x t_cnt triangles: the
+    larger of the operations over the FP32 peak and the bytes over the
+    memory rate. The FP32 peak counts a fused multiply-add as two
+    operations; the library is built without contraction (-fmad=false),
+    so its operations can run at half that rate at most (`fmad_free_ms`)."""
+    ops_ms = (n * t_cnt * OPS_MT + n * OPS_RAY) / PEAK_FP32 * 1e3
+    bytes_ms = (n * RAY_BYTES + t_cnt * 36) / PEAK_BYTES * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "fmad_free_ms": max(2 * ops_ms, bytes_ms)}
 
 
 def camera_rays(scene, cfg, n, rng, dev):
@@ -47,6 +80,23 @@ def camera_rays(scene, cfg, n, rng, dev):
 
     pos = rng.uniform((0.0, 0.0), (cfg.width, cfg.height), (n, 2)).astype(np.float32)
     ap = rng.uniform(size=(n, 2)).astype(np.float32)
+    ray, _ = sample_ray(scene.camera.to(dev), cfg.width, cfg.height,
+                        torch.from_numpy(pos).to(dev), torch.from_numpy(ap).to(dev))
+    return ray
+
+
+def pixel_rays(scene, cfg, frames, rng, dev):
+    """One camera ray per pixel in row order, jittered within its pixel
+    (numpy seed), `frames` times over: the order in which the scan path
+    emits a sample's camera rays."""
+    import torch
+
+    from optix_renderer_tpu_torch.ops.camera import sample_ray
+
+    ys, xs = np.mgrid[0:cfg.height, 0:cfg.width]
+    pix = np.tile(np.stack([xs.ravel(), ys.ravel()], axis=1), (frames, 1))
+    pos = (pix + rng.uniform(size=pix.shape)).astype(np.float32)
+    ap = rng.uniform(size=pix.shape).astype(np.float32)
     ray, _ = sample_ray(scene.camera.to(dev), cfg.width, cfg.height,
                         torch.from_numpy(pos).to(dev), torch.from_numpy(ap).to(dev))
     return ray
@@ -98,6 +148,39 @@ def config_a_rays(isect_bvh, scene, cfg, rng, dev):
     return cam, bounce, shadow
 
 
+def brute_sets(isect, dev, rng) -> dict:
+    """{name: (tri [T, 9], (o, d, mint, cutoff))}, MAIN_RAYS rays each:
+    t12_camera, the Cornell box's 12 triangles and camera rays through
+    random film positions (as phase 7); t64_soup, a seeded 64-triangle soup
+    and rays of random origin and direction; t252_camera, config B-252's
+    252 triangles and one camera ray per pixel in row order; t252_bounce,
+    cosine-distributed bounce rays from the first hits of two such frames,
+    in the same order."""
+    import torch
+
+    from optix_renderer_tpu_torch.scene.presets import make_cornell_box, make_tessellated_cornell
+
+    f32 = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(dev)
+    rays = lambda r: (r.o, r.d, r.mint, r.maxt)
+    scene, cfg, _ = make_cornell_box(800, 600, 4, "path_mis")
+    sets = {"t12_camera": (scene.geometry.to(dev).tri_table,
+                           rays(camera_rays(scene, cfg, MAIN_RAYS, rng, dev)))}
+    soup = np.concatenate([rng.uniform(-1, 1, (64, 3)), rng.normal(0, 0.2, (64, 6))], axis=1)
+    d = rng.normal(size=(MAIN_RAYS, 3))
+    sets["t64_soup"] = (f32(soup), (f32(rng.uniform(-1.5, 1.5, (MAIN_RAYS, 3))),
+                                    f32(d / np.linalg.norm(d, axis=1, keepdims=True)),
+                                    f32(np.full(MAIN_RAYS, 1e-4)),
+                                    f32(np.full(MAIN_RAYS, 3.4e38))))
+    scene, cfg, _ = make_tessellated_cornell(800, 600, 4, "path_mis", nu=10, nv=7)
+    geom = scene.geometry.to(dev)
+    sets["t252_camera"] = (geom.tri_table, rays(pixel_rays(scene, cfg, 1, rng, dev)))
+    more = pixel_rays(scene, cfg, 2, rng, dev)
+    hits = isect.mt_sweep_ref(*rays(more), geom.tri_v0, geom.tri_e1, geom.tri_e2)
+    bounce, _ = bounce_and_shadow_rays(geom, more, hits[0], hits[1], rng)
+    sets["t252_bounce"] = (geom.tri_table, tuple(x[:MAIN_RAYS].contiguous() for x in rays(bounce)))
+    return sets
+
+
 def ptxas_report(text: str) -> dict[str, dict[str, int]]:
     """{kernel: {registers, spill_stores, spill_loads}} from `nvcc -Xptxas -v`."""
     out, name = {}, None
@@ -111,6 +194,59 @@ def ptxas_report(text: str) -> dict[str, dict[str, int]]:
         elif name and (m := re.search(r"Used (\d+) registers", ln)):
             out[name]["registers"] = int(m.group(1))
     return out
+
+
+def sweep_loops(sass: str, kernel: str = "brute_kernel") -> dict:
+    """Instructions per ray-triangle pair of each sweep loop, from the
+    output of `cuobjdump -sass` on the built library: {function: [loop]}.
+    A sweep loop is an innermost loop (a backward branch with no other
+    inside it) that divides (MUFU). Its fast path leaves out every stretch
+    that a forward branch jumps over and that calls a subroutine (the
+    division's slow path); each pair takes one MUFU on it, so per_pair =
+    fast_path / MUFUs."""
+    out = {}
+    for chunk in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = chunk.split("\n", 1)[0].strip()
+        if kernel not in name:
+            continue
+        ins = []  # (address, opcode, branch target or None)
+        line = r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);"
+        for m in re.finditer(line, chunk):
+            tgt = re.search(r"0x([0-9a-f]+)", m.group(3)) if m.group(2).startswith("BRA") else None
+            ins.append((int(m.group(1), 16), m.group(2).split(".")[0],
+                        int(tgt.group(1), 16) if tgt else None))
+        back = [(t, a) for a, op, t in ins if t is not None and t <= a]
+        loops = []
+        for t0, a0 in back:
+            if any((t, a) != (t0, a0) and t0 <= t and a <= a0 for t, a in back):
+                continue  # not innermost
+            body = [x for x in ins if t0 <= x[0] <= a0]
+            skip = set()
+            for a, op, t in body:
+                if t is not None and t > a and any(o == "CALL" for b, o, _ in body if a < b < t):
+                    skip.update(b for b, _, _ in body if a < b < t)
+            fast = [op for a, op, _ in body if a not in skip]
+            mufu = fast.count("MUFU")
+            if mufu:
+                hist = {}
+                for op in fast:
+                    hist[op] = hist.get(op, 0) + 1
+                loops.append({"start": hex(t0), "end": hex(a0), "fast_path": len(fast),
+                              "mufu": mufu, "per_pair": len(fast) / mufu,
+                              "opcodes": dict(sorted(hist.items(), key=lambda kv: -kv[1]))})
+        out[name] = loops
+    return out
+
+
+def library_sass(path) -> str:
+    """`cuobjdump -sass` of the library at `path` ("" where the toolkit has
+    no cuobjdump)."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return ""
+    return subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True).stdout
 
 
 def device_ms(fn, reps: int) -> list[float]:
@@ -133,11 +269,32 @@ def device_ms(fn, reps: int) -> list[float]:
     return ms
 
 
+def profiled_ms(fn, reps: int, kernel: str) -> float:
+    """Device time in ms per call of the CUDA kernels whose name holds
+    `kernel`, from torch.profiler over `reps` calls of `fn()` after a
+    warm-up: the kernel alone, without the launch gaps that an event
+    interval holds, which matter for a kernel of a few microseconds."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and kernel in e.key) / 1e3 / reps
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
                     help="checkout whose optix_renderer_tpu_torch is timed")
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--brute", action="store_true",
+                    help="time isect_brute and the renders that run it (configs B, B-252)")
     args = ap.parse_args()
     sys.path.insert(0, args.root)
 
@@ -157,6 +314,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    if args.brute:
+        print(json.dumps(_brute(args, isect, _build, render, dev, smi)))
+        return 0
     scene, cfg, _ = make_tessellated_cornell(800, 600, 4, "path_mis")
     cfg = dataclasses.replace(cfg, max_depth=8, rfilter="gaussian")
     tree = scene.geometry.to(dev).bvh
@@ -180,13 +340,38 @@ def main() -> int:
     return 0
 
 
-def _renders(render, make_tessellated_cornell, scene_a, cfg_a, dev, reps: int) -> dict:
-    """Median wall seconds and Mpaths/s of `reps` renders of each cell,
-    after a warm-up render, ending with the film on the host."""
+def _brute(args, isect, _build, render, dev, smi) -> dict:
+    """--brute: isect_brute's device time on each of `brute_sets`, then
+    configs B and B-252 through render()."""
     import dataclasses
-    import time
 
-    import torch
+    from optix_renderer_tpu_torch.scene.presets import make_cornell_box, make_tessellated_cornell
+
+    res = {"root": args.root, "gpu": smi, "mode": "brute",
+           "ptxas": {k: v for k, v in ptxas_report(_build.last_build.get("ptxas", "")).items()
+                     if "brute" in k}}
+    sets = brute_sets(isect, dev, np.random.default_rng(7))
+    res["sweep_loops"] = sweep_loops(library_sass(_build.library_path()))
+    for name, (tri, rays) in sets.items():
+        ms = device_ms(lambda: isect.isect_brute(tri, *rays), args.reps)
+        res[name] = {"ms_median": float(np.median(ms)), "ms_each": ms,
+                     "kernel_ms": profiled_ms(lambda: isect.isect_brute(tri, *rays), args.reps,
+                                              "brute_kernel"),
+                     **brute_bound(rays[0].shape[0], tri.shape[0])}
+        if "kernel" in inspect.signature(isect.last_launch).parameters:
+            res[name]["launch"] = isect.last_launch("brute")
+    cells = {}
+    for name, (scene, cfg, _) in (("config_b", make_cornell_box(800, 600, 4, "path_mis")),
+                                  ("config_b252", make_tessellated_cornell(800, 600, 4, "path_mis",
+                                                                           nu=10, nv=7))):
+        cells[name] = (scene, dataclasses.replace(cfg, max_depth=16, rfilter="mitchell"), 1, 4)
+    res["renders"] = _time_renders(render, cells, dev, args.reps)
+    return res
+
+
+def _renders(render, make_tessellated_cornell, scene_a, cfg_a, dev, reps: int) -> dict:
+    """Configs A, bench.py's 400x300 and M through `_time_renders`."""
+    import dataclasses
 
     scene_q, cfg_q, _ = make_tessellated_cornell(400, 300, 1, "path_mis")
     scene_m, cfg_m, _ = make_tessellated_cornell(800, 600, 16, "path_mis", nu=40, nv=51)
@@ -194,6 +379,17 @@ def _renders(render, make_tessellated_cornell, scene_a, cfg_a, dev, reps: int) -
              "bench_400x300": (scene_q, dataclasses.replace(cfg_q, max_depth=8), 4, 4),
              "config_m": (scene_m, dataclasses.replace(cfg_m, max_depth=16, rfilter="gaussian"),
                           1, 16)}
+    return _time_renders(render, cells, dev, reps)
+
+
+def _time_renders(render, cells, dev, reps: int) -> dict:
+    """Median wall seconds and Mpaths/s of `reps` renders of each cell
+    {name: (scene, cfg, warm-up spp, spp)}, after a warm-up render, ending
+    with the film on the host."""
+    import time
+
+    import torch
+
     out = {}
     for name, (scene, cfg, warm_spp, spp) in cells.items():
         render(scene, cfg, sample_count=warm_spp, device=dev)
