@@ -77,8 +77,14 @@ Drives the port's main path (`optix_renderer_tpu_torch`, no JAX) once:
    walk that the medium branch runs) beside the old sweep's;
 13. runs the CLI on the GPU on config M's XML at 160x120, 4 spp;
 14. runs the two probe entry points (`tools/probe_copy.py`,
-   `tools/prof_parts.py`) with their launches counted, and compares each
-   probe kernel with its plain version.
+   `tools/prof_parts.py`) with their launches counted, holds each probe
+   kernel bit for bit against its plain version (`iter_cost` in every mode
+   at 64 and 1,024 iterations), checks on which SMs and in which clusters
+   their CTAs ran (`probe_copy` in clusters of 8, `iter_cost` `reduce` in
+   clusters of 4, the other modes on at least 128 SMs), and prints
+   `probe_copy`'s time beside an empty kernel's in its grid and a torch
+   yardstick, and `iter_cost` `isect`'s beside its bound at the full and
+   the half FP32 rate and the issue limit of its SASS.
 
 Every phase raises on failure. The second-to-last line is a JSON object with
 each kernel's route, source, launches, error, times and bound; the last line
@@ -851,6 +857,7 @@ def main() -> None:
 
     # ---- 14. the probes: their entry points, then kernel vs plain version
     from optix_renderer_tpu_torch.tools import probe_copy, prof_parts
+    from optix_renderer_tpu_torch.tools.time_probes import alone_ms
 
     probe_copy.LAUNCHES = prof_parts.LAUNCHES = 0
     pc = probe_copy.run(dev)
@@ -860,44 +867,100 @@ def main() -> None:
         raise AssertionError(f"a probe launched its kernel no time: {launches_pc}, {launches_ic}")
     if not (pc["rows_equal"] and pc["max_err"] <= 1e-6 * max(1.0, pc["scale"])):
         raise AssertionError(f"probe_copy against the probe's numpy reference: {pc['max_err']}")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def spread(cta_info, cluster):
+        """The distinct SMs of a launch's CTAs; every CTA must sit in a
+        cluster of `cluster` CTAs."""
+        rows = cta_info.cpu().numpy()
+        sizes = sorted(set(rows[:, 1].tolist()))
+        if sizes != [cluster]:
+            raise AssertionError(f"CTAs ran in clusters of {sizes}, not {cluster}")
+        return int(len(set(rows[:, 0].tolist())))
+
+    # probe_copy: bit for bit, its CTAs' SMs and clusters, then its times
     x, sel = probe_copy.make_inputs(dev)
     got = probe_copy.probe_copy(x, sel)
     ref = probe_copy.probe_copy_ref(x, sel)
     err_pc = float((got - ref).abs().max())
-    if not err_pc <= 1e-6 * float(ref.abs().max()):
-        raise AssertionError(f"probe_copy kernel vs plain: {err_pc}")
+    if not torch.equal(got, ref):
+        raise AssertionError(f"probe_copy kernel vs plain: max err {err_pc}, not 0")
     pc_out = torch.empty_like(got)
-    pc_ms = prof_parts.kernel_ms(lambda: probe_copy._launch(x, sel, pc_out), reps=20)
+    pc_info = torch.zeros((probe_copy.CTAS, 2), dtype=torch.int32, device=dev)
+    probe_copy._launch(x, sel, pc_out, info=pc_info)
+    pc_sms = spread(pc_info, 8)
+    if not (torch.equal(pc_out, ref) and pc_sms > 8):
+        raise AssertionError(f"probe_copy with its CTAs recorded: {pc_sms} SMs")
+    launch_pc = lambda: probe_copy._launch(x, sel, pc_out)
+    empty = lambda: probe_copy.empty_launch(dev)
+    yardstick = lambda: probe_copy.torch_yardstick(x, sel)
+    pc_spin_ms = prof_parts.kernel_ms(launch_pc, reps=20)
+    floor_spin_ms = prof_parts.kernel_ms(empty, reps=20)
+    pc_alone = {name: alone_ms(fn, 20, kernel) for name, fn, kernel in
+                (("kernel", launch_pc, "probe_copy_kernel"), ("floor", empty, "empty_kernel"),
+                 ("yardstick", yardstick, ""))}
+    # where torch.profiler records no device time for the kernel (it has
+    # happened for the probes), its time is the one behind a spin
+    pc_ms = pc_alone["kernel"] or pc_spin_ms
     pc_wrapper_ms = event_ms(lambda: probe_copy.probe_copy(x, sel), reps=20)
     pc_plain_ms = event_ms(lambda: probe_copy.probe_copy_ref(x, sel))
     n_flag = sum(probe_copy.flags())
     pc_bound = bound(n_flag * probe_copy.CS * probe_copy.W,
                      n_flag * probe_copy.CS * probe_copy.W * 4 + probe_copy.C * 4
                      + probe_copy.OUT_ROWS * probe_copy.W * 4)
-    print(f"  probe_copy: max err {err_pc:.3e} vs plain, {pc['max_err']:.3e} vs the probe's "
-          f"reference; kernel {pc_ms:.4f} ms (bound {pc_bound[0]:.5f} ms, {pc_bound[1]}), whole "
-          f"wrapper call {pc_wrapper_ms:.4f} ms, plain {pc_plain_ms:.3f} ms on {smi}")
+    print(f"  probe_copy: equal to plain; {probe_copy.CTAS} CTAs in clusters of 8 on {pc_sms} "
+          f"SMs; kernel alone {pc_alone['kernel']:.5f} ms, behind a spin {pc_spin_ms:.5f} ms "
+          f"(bound {pc_bound[0]:.5f} ms, {pc_bound[1]}); an empty kernel in its grid "
+          f"{pc_alone['floor']:.5f} ms alone, {floor_spin_ms:.5f} behind a spin; torch "
+          f"yardstick (index_select + two sums, several calls) {pc_alone['yardstick']:.5f} ms; "
+          f"whole wrapper call {pc_wrapper_ms:.4f} ms, plain {pc_plain_ms:.3f} ms on {smi}")
+
+    # iter_cost: every mode bit for bit at 64 and 1,024 iterations, with its
+    # CTAs' SMs; reduce launches its groups as clusters of 4 CTAs
     x, tri = prof_parts.make_inputs(dev)
-    err_ic, ic_plain = 0.0, {}
+    ic_plain, ic_sms, err_ic = {}, {}, 0.0
     for mode in prof_parts.MODES:
-        got = prof_parts.iter_cost(x, tri, 64, mode)
-        ref, ic_plain[mode] = timed(lambda: prof_parts.iter_cost_ref(x, tri, 64, mode))
-        e = float((got - ref).abs().max())
-        if not e <= 1e-6 * float(ref.abs().max()):
-            raise AssertionError(f"iter_cost {mode} kernel vs plain: {e}")
-        err_ic = max(err_ic, e)
+        for n_it in prof_parts.ITERS:
+            got = prof_parts.iter_cost(x, tri, n_it, mode)
+            ref, plain_ms = timed(lambda: prof_parts.iter_cost_ref(x, tri, n_it, mode))
+            err_ic = max(err_ic, float((got - ref).abs().max()))
+            if not torch.equal(got, ref):
+                raise AssertionError(f"iter_cost {mode} at {n_it} iterations vs plain: max err "
+                                     f"{err_ic}, not 0")
+            if n_it == 64:
+                ic_plain[mode] = plain_ms
+        before = prof_parts.LAUNCHES
+        ic_info = torch.zeros((prof_parts.NB * prof_parts.CTAS, 2), dtype=torch.int32,
+                              device=dev)
+        prof_parts.iter_cost(x, tri, 64, mode, info=ic_info)
+        torch.cuda.synchronize()
+        if prof_parts.LAUNCHES != before + 1:
+            raise AssertionError(f"iter_cost {mode}: the launch was not counted")
+        ic_sms[mode] = spread(ic_info, prof_parts.CTAS if mode == "reduce" else 1)
+        if mode != "reduce" and ic_sms[mode] < min(128, n_sm):
+            raise AssertionError(f"iter_cost {mode} ran on {ic_sms[mode]} SMs")
         r = parts[mode]
         print(f"  iter_cost {mode}: t64 {r['ms'][64]:.4f} ms, t1024 {r['ms'][1024]:.4f} ms, "
               f"marginal {r['us_per_iter']:.5f} us/iteration, {r['us_per_block_iter']:.6f} "
-              f"us/block-iteration; plain at 64 iterations {ic_plain[mode]:.3f} ms; max err "
-              f"{e:.3e} on {smi}")
+              f"us/block-iteration, {r['ns_per_lane_iter']:.7f} ns/lane-iteration; plain at 64 "
+              f"iterations {ic_plain[mode]:.3f} ms; equal to plain at 64 and 1,024 iterations; "
+              f"{prof_parts.NB * prof_parts.CTAS} CTAs on {ic_sms[mode]} SMs on {smi}")
     lanes = prof_parts.NB * prof_parts.LANES
-    # the shadow ray is the current ray (as in tools/prof_parts2.py), so its
-    # test shares the closest test's arithmetic: one test per triangle plus
-    # the shadow's two range checks, the ray (2) and the acc update (6)
-    ic_bound = bound(64 * lanes * (prof_parts.TRIS * (OPS_MT + 2) + 8),
-                     lanes * 4 + tri.numel() * 4 + 8 * lanes * 4)
-    phase(14, f"probes agree with their plain versions; launches probe_copy {launches_pc}, "
+    # the shadow ray is the current ray (as in tools/prof_parts2.py), so one
+    # test per triangle plus the shadow's two range checks, the ray (2) and
+    # the acc update (6); the library is built without FMA, so its
+    # operations run at half the FP32 peak at most; the issue limit counts
+    # the built loop's instructions per lane-triangle
+    ic_ops = 64 * lanes * (prof_parts.TRIS * (OPS_MT + 2) + 8)
+    ic_bytes = lanes * 4 + tri.numel() * 4 + 8 * lanes * 4
+    ic_bound = bound(ic_ops, ic_bytes)
+    ic_half = bound(2 * ic_ops, ic_bytes)[0]
+    ic_per_pair = prof_parts.isect_per_pair(library_sass(info["path"]))
+    ic_issue = prof_parts.issue_limit_ms(ic_per_pair, 64) if ic_per_pair else None
+    print(f"  iter_cost isect at 64 iterations: bound {ic_bound[0]:.4f} ms ({ic_bound[1]}), "
+          f"{ic_half:.4f} ms at half the FP32 rate; {ic_per_pair} instructions per "
+          f"lane-triangle, issue limit {ic_issue} ms at 1,980 MHz")
+    phase(14, f"probes equal their plain versions; launches probe_copy {launches_pc}, "
               f"iter_cost {launches_ic}")
 
     def row(name, source, replaces, launches, err, ms, plain_ms, bnd, **extra):
@@ -937,11 +1000,22 @@ def main() -> None:
             median_rel_err=st_m["median_rel_err"], walk_ops_per_ray=walk_ray_ops,
             old_sweep_bound_ms=sweep_bound[0], ptxas=medium_regs),
         row("probe_copy", PROBES_SOURCE, "tools/probe_mosaic.py:50", launches_pc, err_pc, pc_ms,
-            pc_plain_ms, pc_bound, wrapper_ms=pc_wrapper_ms),
+            pc_plain_ms, pc_bound, wrapper_ms=pc_wrapper_ms, ms_behind_spin=pc_spin_ms,
+            latency_floor_ms=pc_alone["floor"], latency_floor_behind_spin_ms=floor_spin_ms,
+            torch_yardstick_ms=pc_alone["yardstick"],
+            torch_yardstick_note="index_select, then two sums: several calls that add in "
+                                 "other orders, so a yardstick of time only",
+            kernel="probe_copy_kernel (128 CTAs in clusters of 8, one tensor copy each)",
+            sms=pc_sms),
         row("iter_cost", PROBES_SOURCE, "tools/prof_parts2.py:40", launches_ic, err_ic,
             parts["isect"]["ms"][64], ic_plain["isect"], ic_bound, shape="isect, 64 iterations",
+            bound_half_rate_ms=ic_half, issue_limit_ms=ic_issue,
+            instructions_per_lane_triangle=ic_per_pair,
+            kernel="iter_cost_kernel<MODE> (4 CTAs of 1,024 threads per group; reduce in "
+                   "clusters)",
             modes={m: {"ms_64": r["ms"][64], "ms_1024": r["ms"][1024],
-                       "us_per_iter": r["us_per_iter"], "plain_ms_64": ic_plain[m]}
+                       "us_per_iter": r["us_per_iter"], "ns_per_lane_iter": r["ns_per_lane_iter"],
+                       "plain_ms_64": ic_plain[m], "sms": ic_sms[m]}
                    for m, r in parts.items()}),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -128,11 +128,18 @@ def load() -> ctypes.CDLL:
         lib.isect_brute_last_launch.restype = None
         lib.isect_rcp_check_launch.argtypes = [vp, vp]  # uint64 counts [2], stream
         lib.isect_rcp_check_launch.restype = i
-        lib.probe_copy_launch.argtypes = [vp, vp, vp, vp]  # x, sel, out, stream
+        lib.probe_copy_launch.argtypes = [
+            vp, vp, vp,  # x, sel, out
+            vp,  # info: int32 [128, 2] (SM, cluster CTAs per CTA) or null
+            vp,  # stream
+        ]
         lib.probe_copy_launch.restype = i
+        lib.probe_empty_launch.argtypes = [vp]  # stream
+        lib.probe_empty_launch.restype = i
         lib.iter_cost_launch.argtypes = [
             vp, vp, vp,  # x, tri, out
             i, i, i,  # nb, n_it, mode
+            vp,  # info: int32 [nb * 4, 2] (SM, cluster CTAs per CTA) or null
             vp,  # stream
         ]
         lib.iter_cost_launch.restype = i
