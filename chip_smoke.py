@@ -84,7 +84,24 @@ Drives the port's main path (`optix_renderer_tpu_torch`, no JAX) once:
    clusters of 4, the other modes on at least 128 SMs), and prints
    `probe_copy`'s time beside an empty kernel's in its grid and a torch
    yardstick, and `iter_cost` `isect`'s beside its bound at the full and
-   the half FP32 rate and the issue limit of its SASS.
+   the half FP32 rate and the issue limit of its SASS;
+15. drives the single-bounce integrators and the surface features through
+   the scan path: the Cornell box at 800x600, 4 spp, through `render()`
+   once with each of normals, av, direct, direct_ems, direct_mats,
+   direct_mis, preview and envmaptester (1-spp warm-up each, film on the
+   host inside the clock), checking that the path kernel refuses them and
+   that `isect_brute` launched its expected count per sample (1, 2, 2, 2,
+   2, 3, 2, 0: one per closest hit or shadow ray of the 480,000-pixel
+   chunk) and no LBVH kernel; config T (`scene/presets.py:
+   textured_cornell_xml`: checkerboard floor, PNG back wall, normal-mapped
+   wall, a sphere light, a rotated EXR envmap) at 800x600, 4 spp, with
+   direct_mis and path_mis; config A's geometry with direct_mis (1 spp
+   after 1), whose LBVH kernels, closest and any, must launch; and a
+   torch.profiler breakdown of one 1-spp Cornell direct_mis render;
+16. holds the scan path on the card against tests/golden/cbox_{direct_mis,
+   normals}.exr by phase 10's rule, and config T at 64x48, 4 spp, box
+   filter (direct_mis and path_mis) on the card against the same render on
+   the CPU (median relative error < 1e-4, means within 1e-3).
 
 Every phase raises on failure. The second-to-last line is a JSON object with
 each kernel's route, source, launches, error, times and bound; the last line
@@ -277,6 +294,51 @@ def golden_stats(out, ref) -> dict:
             "mean": float(out.mean()), "mean_ref": float(ref.mean())}
 
 
+def hold_golden(integ: str, dev) -> dict:
+    """tools/gen_golden.py's config through the scan path on `dev`, held
+    against tests/golden/cbox_{integ}.exr: tests/test_golden.py's bound, or,
+    where a sample of the 8 x 3072 takes another branch than in the JAX
+    film, every pixel over it inside two filter footprints, the median
+    < 1e-4 and the means within 1e-3 (tests/test_torch_general.py)."""
+    from optix_renderer_tpu_torch.render.film import in_footprints
+    from optix_renderer_tpu_torch.render.render import render
+    from optix_renderer_tpu_torch.scene.presets import make_cornell_box
+    from optix_renderer_tpu_torch.utils.imageio import read_exr
+
+    scene, cfg, _ = make_cornell_box(64, 48, 1, integ)
+    cfg = dataclasses.replace(cfg, max_depth=4, rfilter="gaussian")
+    b = render(scene, cfg, sample_count=8, device=dev, mega=False)["composite"]
+    a = read_exr(ROOT / "tests" / "golden" / f"cbox_{integ}.exr")[..., :3]
+    st = golden_stats(b, a)
+    print(f"  golden {integ} through the scan path: {json.dumps(st)}")
+    over = (np.abs(b - a) / (np.abs(a) + 1e-2)).max(axis=-1) > 1e-3
+    ok = st["max"] < 1e-3 or (st["median"] < 1e-4 and in_footprints(over, cfg.rfilter, 2)
+                               and abs(st["mean"] - st["mean_ref"]) <= 1e-3 * st["mean_ref"])
+    if not ok:
+        raise AssertionError(f"golden {integ} through the scan path: {st}")
+    return st
+
+
+def device_breakdown(fn, top: int = 8) -> dict:
+    """Wall clock of `fn()` under torch.profiler, the device's busy time (its
+    CUDA kernels' self time: each CPU op's row repeats its kernels' time, so
+    only the CUDA events are summed), their count, the idle share and the
+    `top` kernels by device time (ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        wall = time.time() - t0
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in ev) / 1e6
+    ev.sort(key=lambda e: -e.self_device_time_total)
+    return {"wall_s": wall, "device_busy_s": busy, "kernels": sum(e.count for e in ev),
+            "idle_share": 1.0 - busy / wall,
+            "top_ms": {e.key[:50]: e.self_device_time_total / 1e3 for e in ev[:top]}}
+
+
 def main() -> None:
     # ---- 1. the card
     if not torch.cuda.is_available():
@@ -288,7 +350,6 @@ def main() -> None:
 
     from optix_renderer_tpu_torch.ops import bvh
     from optix_renderer_tpu_torch.ops.cuda import _build, isect, pathk
-    from optix_renderer_tpu_torch.render.film import in_footprints
     from optix_renderer_tpu_torch.render.render import _layers_out, render
     from optix_renderer_tpu_torch.scene.presets import (
         cornell_box_xml,
@@ -622,23 +683,12 @@ def main() -> None:
               f"{r['launch']} on {smi}")
     ms_closest, ms_any = bvh_rows["closest_camera"]["ms"], bvh_rows["any_shadow"]["ms"]
     # where the time of a config A sample goes: device time by kernel and the
-    # device's idle share of the wall clock (torch.profiler; only the CUDA
-    # events are summed, since each CPU op's row repeats its kernels' time)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        render(scene_a, cfg_a, sample_count=1, device=dev)
-        wall_1 = time.time() - t0
-    dev_us = {e.key: e.self_device_time_total for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA}
-    busy = sum(dev_us.values()) / 1e6
-    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
-    print(f"  config A, 1 spp under the profiler: wall {wall_1:.4f} s, device busy {busy:.4f} s "
-          f"in {sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)} "
-          f"kernels, idle share {1.0 - busy / wall_1:.4f}; top device time (ms): "
-          + "; ".join(f"{k[:50]} {v / 1e3:.3f}" for k, v in top))
+    # device's idle share of the wall clock
+    pa = device_breakdown(lambda: render(scene_a, cfg_a, sample_count=1, device=dev))
+    print(f"  config A, 1 spp under the profiler: wall {pa['wall_s']:.4f} s, device busy "
+          f"{pa['device_busy_s']:.4f} s in {pa['kernels']} kernels, idle share "
+          f"{pa['idle_share']:.4f}; top device time (ms): "
+          + "; ".join(f"{k} {v:.3f}" for k, v in pa["top_ms"].items()))
     phase(8, f"config A: {800 * 600 * 4 / dt_a / 1e6:.4f} Mpaths/s, launches {launches_a}")
 
     # ---- 9. config B through render(): the brute-force kernel on the main path
@@ -713,20 +763,7 @@ def main() -> None:
 
     # ---- 10. the general path against the goldens (tools/gen_golden.py config)
     for integ in ("path_mis", "path_mats"):
-        scene, cfg, _ = make_cornell_box(64, 48, 1, integ)
-        cfg = dataclasses.replace(cfg, max_depth=4, rfilter="gaussian")
-        b = render(scene, cfg, sample_count=8, device=dev, mega=False)["composite"]
-        a = read_exr(ROOT / "tests" / "golden" / f"cbox_{integ}.exr")[..., :3]
-        st = golden_stats(b, a)
-        print(f"  golden {integ} through the scan path: {json.dumps(st)}")
-        # tests/test_golden.py's bound; else at most two samples of the 8 × 3072
-        # take another branch than in the JAX film: every pixel over the bound
-        # lies inside two filter footprints (tests/test_torch_general.py)
-        over = (np.abs(b - a) / (np.abs(a) + 1e-2)).max(axis=-1) > 1e-3
-        ok = st["max"] < 1e-3 or (st["median"] < 1e-4 and in_footprints(over, cfg.rfilter, 2)
-                                   and abs(st["mean"] - st["mean_ref"]) <= 1e-3 * st["mean_ref"])
-        if not ok:
-            raise AssertionError(f"golden {integ} through the scan path: {st}")
+        hold_golden(integ, dev)
     phase(10, "the scan path reproduces the goldens")
 
     # ---- 11. the path kernel's medium branch vs its plain version
@@ -963,6 +1000,93 @@ def main() -> None:
     phase(14, f"probes equal their plain versions; launches probe_copy {launches_pc}, "
               f"iter_cost {launches_ic}")
 
+    # ---- 15. the single-bounce integrators and the surface features on the scan path
+    from optix_renderer_tpu_torch.scene.presets import textured_cornell_xml
+
+    def scan_render(scene, cfg, spp, warm=1):
+        """(film, s, isect launches) of one timed `render()` after a warm-up,
+        the counts set to 0 just before it and read just after."""
+        if warm:
+            render(scene, cfg, sample_count=warm, device=dev)
+        for k in isect.LAUNCHES:
+            isect.LAUNCHES[k] = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = render(scene, cfg, sample_count=spp, device=dev)  # returns host numpy
+        return out, time.time() - t0, dict(isect.LAUNCHES)
+
+    # isect_brute launches per sample of the one 480,000-pixel chunk: one per
+    # closest-hit trace and one per shadow ray (integrators/simple.py)
+    per_sample = {"normals": 1, "av": 2, "direct": 2, "direct_ems": 2, "direct_mats": 2,
+                  "direct_mis": 3, "preview": 2, "envmaptester": 0}
+    slice_runs = {}
+    scene_c, cfg_c, _ = make_cornell_box(800, 600, 4)
+    for integ, k in per_sample.items():
+        cfg = dataclasses.replace(cfg_c, integrator=integ)
+        if pathk.pathk_eligible(scene_c, cfg):
+            raise AssertionError(f"the path kernel took the Cornell box with {integ}")
+        out, dt, ln = scan_render(scene_c, cfg, 4)
+        comp = out["composite"]
+        slice_runs[f"cornell_{integ}"] = {"s": dt, "mpaths_s": 800 * 600 * 4 / dt / 1e6,
+                                          "launches": ln, "film_mean": float(comp.mean())}
+        print(f"  Cornell 800x600 {integ}, 4 spp: {dt:.4f} s, {800 * 600 * 4 / dt / 1e6:.4f} "
+              f"Mpaths/s on {smi}; launches {ln}; film mean {comp.mean():.5f}")
+        if ln["isect_brute"] != 4 * k or ln["isect_bvh_closest"] or ln["isect_bvh_any"]:
+            raise AssertionError(f"Cornell {integ}: launches {ln}, expected isect_brute {4 * k}")
+        if not (np.isfinite(comp).all() and comp.shape == (600, 800, 3)
+                and (comp.mean() > 0) == (integ != "envmaptester")):
+            raise AssertionError(f"Cornell {integ}: the film is not finite / as expected")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        scene_t, cfg_t, _ = load_scene(textured_cornell_xml(Path(tmp), 800, 600, 4))
+    if pathk.pathk_eligible(scene_t, cfg_t) or not scene_t.shapes.mapped:
+        raise AssertionError("config T is not the textured scene of the scan path")
+    for integ in ("direct_mis", "path_mis"):
+        out, dt, ln = scan_render(scene_t, dataclasses.replace(cfg_t, integrator=integ), 4)
+        comp = out["composite"]
+        slice_runs[f"config_t_{integ}"] = {"s": dt, "mpaths_s": 800 * 600 * 4 / dt / 1e6,
+                                           "launches": ln, "film_mean": float(comp.mean())}
+        print(f"  config T 800x600 {integ} depth {cfg_t.max_depth}, 4 spp: {dt:.4f} s, "
+              f"{800 * 600 * 4 / dt / 1e6:.4f} Mpaths/s on {smi}; launches {ln}; "
+              f"film mean {comp.mean():.5f}")
+        if not (ln["isect_brute"] > 0 and np.isfinite(comp).all() and comp.mean() > 0):
+            raise AssertionError(f"config T {integ}: launches {ln}, film mean {comp.mean()}")
+    cfg_ad = dataclasses.replace(cfg_a, integrator="direct_mis")
+    out, dt, ln = scan_render(scene_a, cfg_ad, 1)
+    comp = out["composite"]
+    slice_runs["config_a_direct_mis"] = {"s": dt, "mpaths_s": 800 * 600 / dt / 1e6,
+                                         "launches": ln, "film_mean": float(comp.mean())}
+    print(f"  config A 800x600 direct_mis, 1 spp: {dt:.4f} s, {800 * 600 / dt / 1e6:.4f} "
+          f"Mpaths/s on {smi}; launches {ln}; film mean {comp.mean():.5f}")
+    if not (ln["isect_bvh_closest"] > 0 and ln["isect_bvh_any"] > 0 and ln["isect_brute"] == 0
+            and np.isfinite(comp).all() and comp.mean() > 0):
+        raise AssertionError(f"config A direct_mis: launches {ln}")
+    prof_dm = device_breakdown(lambda: render(
+        scene_c, dataclasses.replace(cfg_c, integrator="direct_mis"), sample_count=1,
+        device=dev))
+    print(f"  Cornell 800x600 direct_mis, 1 spp under the profiler: {json.dumps(prof_dm)}")
+    phase(15, "the eight single-bounce integrators, config T and config A direct_mis rendered "
+              "through the scan path: " + ", ".join(
+                  f"{k} {v['mpaths_s']:.3f}" for k, v in slice_runs.items()) + " Mpaths/s")
+
+    # ---- 16. the slice against the goldens, and config T on the card against the CPU
+    for integ in ("direct_mis", "normals"):
+        hold_golden(integ, dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        scene_t, cfg_t, _ = load_scene(textured_cornell_xml(Path(tmp), 64, 48, 4, rfilter="box"))
+    for integ in ("direct_mis", "path_mis"):
+        cfg = dataclasses.replace(cfg_t, integrator=integ)
+        a = render(scene_t, cfg, device=dev)["composite"]
+        b = render(scene_t, cfg, device="cpu")["composite"]
+        rel = np.abs(a - b) / (np.abs(b) + 1e-3)
+        st = {"median_rel_err": float(np.median(rel)), "max_abs_err": float(np.abs(a - b).max()),
+              "mean_cuda": float(a.mean()), "mean_cpu": float(b.mean())}
+        print(f"  config T 64x48 box {integ}, cuda against cpu: {json.dumps(st)}")
+        if not (st["median_rel_err"] < 1e-4
+                and abs(st["mean_cuda"] - st["mean_cpu"]) <= 1e-3 * abs(st["mean_cpu"])):
+            raise AssertionError(f"config T {integ}: the card's film differs from the CPU's: {st}")
+    phase(16, "the scan path reproduces cbox_direct_mis / cbox_normals, and config T on cuda "
+              "matches the CPU")
+
     def row(name, source, replaces, launches, err, ms, plain_ms, bnd, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -977,6 +1101,8 @@ def main() -> None:
         row("isect_bvh_closest", ISECT_SOURCE, "optix_renderer_tpu/ops/pallas/cluster.py:454",
             launches_a["isect_bvh_closest"], err_bvh, ms_closest, plain_closest,
             bvh_rows["closest_camera"]["bound"], rays=MAIN_RAYS,
+            launches_config_a_direct_mis=slice_runs["config_a_direct_mis"]["launches"][
+                "isect_bvh_closest"],
             kernel="bvh_kernel<false> (child-pair walk, persistent warps fed from a ray counter)",
             camera=bvh_rows["closest_camera"], bounce=bvh_rows["closest_bounce"],
             ms_bounce=bvh_rows["closest_bounce"]["ms"],
@@ -984,6 +1110,8 @@ def main() -> None:
         row("isect_bvh_any", ISECT_SOURCE, "optix_renderer_tpu/ops/pallas/cluster.py:454",
             launches_a["isect_bvh_any"], err_any, ms_any, plain_any,
             bvh_rows["any_shadow"]["bound"], rays=MAIN_RAYS, kernel="bvh_kernel<true>",
+            launches_config_a_direct_mis=slice_runs["config_a_direct_mis"]["launches"][
+                "isect_bvh_any"],
             shadow=bvh_rows["any_shadow"], ptxas=bvh_regs),
         row("isect_brute", ISECT_SOURCE, "optix_renderer_tpu/ops/pallas/mxu_intersect.py:195",
             launches_b["isect_brute"], err_brute, ms_brute, plain_brute, b_brute, rays=MAIN_RAYS,
@@ -991,6 +1119,7 @@ def main() -> None:
             kernel="brute_kernel (persistent blocks, table staged once, 4 rays per thread)",
             shape=f"{MAIN_RAYS} rays x 12 triangles, kernel alone (torch.profiler)",
             wrapper_ms=wrapper_brute, sets=brute_rows, launches_b252=launches_b252["isect_brute"],
+            launches_scan_slice={k: v["launches"]["isect_brute"] for k, v in slice_runs.items()},
             ptxas=brute_regs, instructions_per_pair=brute_loops),
         row("pathk_trace_medium", KERNEL_SOURCE, REPLACES, launches_m, err_medium, medium_ms,
             medium_plain_ms, walk_bound, branch="MXU, optix_renderer_tpu/ops/pallas/pathk.py:622",

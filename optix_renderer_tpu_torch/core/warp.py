@@ -1,8 +1,9 @@
 """Sample warps used by the BSDFs and emitters of the general path.
 
 The subset of `optix_renderer_tpu/core/warp.py` (reference warp.cpp) that
-`ops/bsdf.py`, `ops/emitter.py` and `ops/camera.py` call; `[..., 2]`
-uniforms in, batched points or directions out.
+`ops/bsdf.py`, `ops/emitter.py`, `ops/camera.py` and
+`integrators/simple.py` call; `[..., 2]` uniforms in, batched points or
+directions out.
 """
 
 from __future__ import annotations
@@ -33,6 +34,12 @@ def square_to_uniform_sphere_cap(s: torch.Tensor, cos_theta_max: torch.Tensor) -
     r = safe_sqrt(1.0 - z * z)
     theta = s[..., 1] * 2.0 * PI
     return torch.stack([r * torch.cos(theta), r * torch.sin(theta), z], dim=-1)
+
+
+def square_to_uniform_hemisphere(s: torch.Tensor) -> torch.Tensor:
+    """The uniform sphere folded onto z >= 0 (warp.py:81-83 of the JAX package)."""
+    v = square_to_uniform_sphere(s)
+    return torch.cat([v[..., :2], torch.abs(v[..., 2:3])], dim=-1)
 
 
 def square_to_cosine_hemisphere(s: torch.Tensor) -> torch.Tensor:

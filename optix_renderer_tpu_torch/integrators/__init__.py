@@ -5,23 +5,30 @@ integrator has the signature
 
     li(scene, config, ray, sampler) -> (L [N,3], albedo [N,3], normal [N,3], sampler)
 
-The port has `path_mats` and `path_mis` so far; the JAX package's other
+The port has the ten surface integrators, the single-bounce ones of
+`simple.py` and `path_mats` / `path_mis`; the JAX package's other
 integrators raise `NotImplementedError` naming the ROADMAP item that ports
 them.
 """
 
 from optix_renderer_tpu_torch.integrators import path as _path
+from optix_renderer_tpu_torch.integrators import simple as _simple
 
 REGISTRY = {
+    "normals": _simple.li_normals,
+    "av": _simple.li_av,
+    "direct": _simple.li_direct,
+    "direct_ems": _simple.li_direct_ems,
+    "direct_mats": _simple.li_direct_mats,
+    "direct_mis": _simple.li_direct_mis,
+    "preview": _simple.li_preview,
+    "envmaptester": _simple.li_envmaptester,
     "path_mats": _path.li_path_mats,
     "path_mis": _path.li_path_mis,
 }
 
 # the JAX package's other integrators → the ROADMAP item that ports them
 _NOT_YET = {
-    **{name: "ROADMAP Queue 1 item 8 (integrators/simple.py)" for name in (
-        "normals", "av", "direct", "direct_ems", "direct_mats", "direct_mis", "preview",
-        "envmaptester")},
     "path_vol_mats": "ROADMAP Queue 1 item 9 (media)",
     "path_vol_mis": "ROADMAP Queue 1 item 9 (media)",
     "photonmapper": "ROADMAP Queue 1 item 13 (photon mapping)",

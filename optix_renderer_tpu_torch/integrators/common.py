@@ -16,6 +16,7 @@ from optix_renderer_tpu_torch.core.math import (
     EPSILON,
     Frame,
     Ray,
+    cross,
     dot,
     frame_to_local,
     frame_to_world,
@@ -38,7 +39,7 @@ class ShadingCtx(NamedTuple):
     """Per-lane hit context (the reference `Intersection` + plugin lookups)."""
 
     its: Interaction
-    frame: Frame  # shading frame
+    frame: Frame  # shading frame (normal-mapped where a normal map is attached)
     bsdf_id: torch.Tensor  # [N]
     emitter_id: torch.Tensor  # [N] (−1 none)
 
@@ -46,18 +47,37 @@ class ShadingCtx(NamedTuple):
 def trace(scene: SceneData, ray: Ray) -> ShadingCtx:
     """Closest hit + shading setup; missed lanes get BSDF 0 / emitter −1.
 
-    The frame is built as the JAX package builds it for a surface without a
-    normal map (common.py:48-71): `make_frame(normalize(n_s))`, the shading
-    normal normalized once more. The port's builder refuses normal maps
-    (ROADMAP Queue 1 item 8), so the map's tangent-space branch is not
-    taken here.
+    Tangent-space normal mapping (mesh.cpp:141-186, common.py:48-71 of the
+    JAX package): where the shape has a normal map, n_s is perturbed by the
+    texture's normal in a UV-aligned TBN frame whose bitangent carries the
+    UV chart's handedness (`tang.w`), so mirrored charts keep the map's
+    green channel; triangles with a degenerate UV chart, and spheres, fall
+    back to the Duff frame of n_s. A scene without normal maps skips the
+    map's arithmetic (`Shapes.mapped`), which would select n_s everywhere.
     """
     hit = intersect(scene.geometry, ray)
     its = make_interaction(scene.geometry, ray, hit)
     sid = torch.clamp(its.shape, min=0).long()
     bsdf_id = torch.where(its.valid, scene.shapes.bsdf[sid], 0)
     emitter_id = torch.where(its.valid, scene.shapes.emitter[sid], -1)
-    frame = make_frame(normalize(its.n_s))
+
+    n = its.n_s
+    if not scene.shapes.mapped:
+        return ShadingCtx(its=its, frame=make_frame(normalize(n)), bsdf_id=bsdf_id,
+                          emitter_id=emitter_id)
+    ntex = scene.shapes.normal_tex[sid]
+    fallback = make_frame(n)
+    tang3 = its.tang[..., :3]
+    t_proj = tang3 - n * dot(n, tang3)[..., None]
+    has_tbn = ((t_proj * t_proj).sum(dim=-1) > 1e-12)[..., None]
+    t_hat = normalize(torch.where(has_tbn, t_proj, fallback.s))
+    b_hat = its.tang[..., 3:4] * cross(n, t_hat)
+    tbn = Frame(s=torch.where(has_tbn, t_hat, fallback.s),
+                t=torch.where(has_tbn, b_hat, fallback.t), n=n)
+    tex_n = eval_texture(scene.textures, ntex, its.uv) * 2.0 - 1.0
+    pert = normalize(frame_to_world(tbn, tex_n))
+    n2 = torch.where(((ntex >= 0) & its.valid)[..., None], pert, n)
+    frame = make_frame(normalize(n2))
     return ShadingCtx(its=its, frame=frame, bsdf_id=bsdf_id, emitter_id=emitter_id)
 
 

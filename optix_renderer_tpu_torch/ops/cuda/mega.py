@@ -143,25 +143,48 @@ def fresnel_dielectric(cos_i, ext_ior, int_ior):
 def mega_unsupported(scene, config) -> str | None:
     """Why this (scene, config) cannot run in the path kernel, or None.
 
-    The JAX package falls back to its XLA integrators for these, and so
-    does this package: `render()` sends such a scene to the scan path
-    (`render.scan_step`), which raises where it cannot render it either.
-    The reason only decides eligibility; it names the ROADMAP item that
-    would bring the scene into the path kernel.
+    Clause for clause the JAX package's `mega_eligible`
+    (`optix_renderer_tpu/ops/pallas/mega.py:185-240`), which sends such
+    scenes to its XLA integrators; `render()` sends them to the scan path
+    (`render.scan_step`), which raises where it cannot render them either.
+    Each reason names what the kernel does not cover.
     """
+    npy = lambda t: t.detach().cpu().numpy()
     g = scene.geometry
     t_cnt = int(g.tri_v0.shape[0])
     if t_cnt == 0:
-        return "scenes without triangles need the general path: ROADMAP Queue 1 item 8"
+        return "a scene without triangles takes the scan path"
     if t_cnt > MAX_MXU_TRIS:
         return (f"{t_cnt} triangles > {MAX_MXU_TRIS}: the path kernel's LBVH walk takes scenes up "
                 f"to {MAX_MXU_TRIS} (larger ones in the kernel are ROADMAP Queue 1 item 7)")
-    if int(g.sph_center.shape[0]) > MAX_SPHERES:
+    n_sph = int(g.sph_center.shape[0])
+    if n_sph > MAX_SPHERES:
         return f"more than {MAX_SPHERES} spheres need the LBVH: ROADMAP Queue 1 item 7"
+    if n_sph and np.any(npy(scene.shapes.emitter)[npy(g.sph_shape)] >= 0):
+        return "sphere-area emitters take the scan path"
     if config.integrator not in ("path_mis", "path_mats"):
-        return f"integrator '{config.integrator}' needs the general path: ROADMAP Queue 1 item 8"
+        return f"integrator '{config.integrator}' takes the scan path"
     if config.adaptive:
         return "adaptive sampling: ROADMAP Queue 1 item 11"
+    if np.any(npy(scene.shapes.normal_tex) >= 0):
+        return "normal maps take the scan path"
+    bt = npy(scene.bsdfs.type)
+    if bt.size and bt.max() > BSDF_DISNEY:
+        return f"BSDF type {int(bt.max())} takes the scan path"
+    used = npy(scene.bsdfs.albedo_tex)
+    used = used[used >= 0]
+    if used.size and np.any(npy(scene.textures.type)[used] != 0):
+        return "checkerboard / image textures take the scan path"
+    et = npy(scene.emitters.type)
+    if et.size == 0:
+        return "a scene without an emitter table takes the scan path"
+    if np.any(~np.isin(et, (EM_POINT, EM_SPOT, EM_AREA, EM_ENVMAP, EM_DIRECTIONAL))):
+        return "volume emitters take the scan path"
+    if np.any((et == EM_AREA) & (npy(scene.emitters.geom_kind) != 1)):
+        return "area emitters on other shapes than meshes take the scan path"
+    img = scene.envmap.img
+    if scene.envmap_emitter >= 0 and img.shape[0] * img.shape[1] != 1:
+        return "image-based environment maps take the scan path"
     return None
 
 
@@ -245,10 +268,10 @@ def build_mega_tables(scene) -> dict[str, np.ndarray]:
         sph[:ns_, 12:15] = np.where((s_alb >= 0)[:, None], tex_val[np.maximum(s_alb, 0)], 1.0)
         sph[:ns_, 16:26] = npy(scene.bsdfs.disney)[s_bsdf]
 
-    # constant-envmap radiance (0 if none) + presence flag
+    # constant-envmap radiance, its 1×1 table (0 if none), + presence flag
     env_rad = np.zeros(4, np.float32)
     if scene.envmap_emitter >= 0:
-        env_rad[:3] = npy(scene.envmap_radiance)
+        env_rad[:3] = npy(scene.envmap.img)[0, 0]
         env_rad[3] = 1.0
     return {"em_rows": rows, "et": et_tab, "te_cnt": te, "env": env_rad, "sph": sph}
 

@@ -128,7 +128,7 @@ def pathk_unsupported(scene, config) -> str | None:
     """Why this (scene, config) cannot take the path-kernel contract, or None."""
     if config.rfilter not in FILTERS:
         return (f"the '{config.rfilter}' filter cannot be importance-sampled and "
-                "needs the splat film: ROADMAP Queue 1 item 8")
+                "takes the scan path's splat film")
     return mega.mega_unsupported(scene, config)
 
 

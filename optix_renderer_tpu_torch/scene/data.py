@@ -2,11 +2,13 @@
 
 The subset of `optix_renderer_tpu/scene/data.py` that the path kernel and
 the general path read: triangles (with their LBVH tables from 257
-triangles on) and spheres, the shape/BSDF/texture attachment tables,
-emitters with their triangle CDFs, the emitter-pick distribution, the
-camera and a constant environment radiance. Field names and layouts
-are the JAX package's, so `scene_from_numpy` can carry a JAX scene across
-by name. Every table has `.to(device)`.
+triangles on) and spheres, the shape/BSDF/texture attachment tables
+(constant, checkerboard and image textures, normal maps), emitters with
+their triangle CDFs and sphere ids, the emitter-pick distribution, the
+camera and the environment map's lat-long tables with their pixel
+distribution. Field names and layouts are the JAX package's, so
+`scene_from_numpy` can carry a JAX scene across by name. Every table has
+`.to(device)`.
 """
 
 from __future__ import annotations
@@ -119,6 +121,14 @@ class Geometry(_Tables):
 class Shapes(_Tables):
     bsdf: torch.Tensor  # [N] i32 bsdf id
     emitter: torch.Tensor  # [N] i32 emitter id or -1
+    normal_tex: torch.Tensor  # [N] i32 tangent-space normal-map texture id or -1
+    # whether any shape has a normal map; computed when None, so that
+    # `integrators/common.trace` skips the map's arithmetic without a sync
+    mapped: bool | None = None
+
+    def __post_init__(self):
+        if self.mapped is None:
+            object.__setattr__(self, "mapped", bool((self.normal_tex >= 0).any()))
 
 
 @dataclass(frozen=True)
@@ -137,10 +147,24 @@ class Bsdfs(_Tables):
 
 @dataclass(frozen=True)
 class Textures(_Tables):
-    """Constant textures only."""
+    """Tagged-union texture table (consttexture / checkerboard / PNGTexture)
+    and the stack of its images, padded to the largest."""
 
-    type: torch.Tensor  # [X] i32 (all TextureType.CONST)
-    value: torch.Tensor  # [X,3]
+    type: torch.Tensor  # [X] i32 TextureType
+    value: torch.Tensor  # [X,3] constant value / checker value1 / image: 1
+    value2: torch.Tensor  # [X,3] checker value2
+    scale_uv: torch.Tensor  # [X,2] checker cell size / image uv repeat
+    shift_uv: torch.Tensor  # [X,2] checker delta
+    image_id: torch.Tensor  # [X] i32 index into image_data, or -1
+    image_data: torch.Tensor  # [I,Hmax,Wmax,3] f32 linear (one zero texel without images)
+    image_hw: torch.Tensor  # [I,2] i32 each image's own height, width
+    # the TextureTypes in `type`; computed when empty, so that
+    # `ops/texture.eval_texture` evaluates only the kinds present, without a sync
+    kinds: tuple = ()
+
+    def __post_init__(self):
+        if not self.kinds:
+            object.__setattr__(self, "kinds", tuple(sorted(set(self.type.tolist()))))
 
 
 @dataclass(frozen=True)
@@ -158,12 +182,31 @@ class Emitters(_Tables):
     tri_count: torch.Tensor  # [E] i32
     tri_cdf: torch.Tensor  # [E, MAXT] normalized area CDF (padded with 1s)
     area: torch.Tensor  # [E]
+    sphere_id: torch.Tensor  # [E] i32 sphere of a sphere-area emitter, or -1
+    # whether any emitter lies on a sphere; computed when None, so that
+    # `ops/emitter.sample_emitter` skips the sphere branch without a sync
+    sphere_lights: bool | None = None
+
+    def __post_init__(self):
+        if self.sphere_lights is None:
+            object.__setattr__(self, "sphere_lights",
+                               bool((self.geom_kind == EmitterGeom.SPHERE).any()))
 
 
 @dataclass(frozen=True)
 class DiscretePDF(_Tables):
     pmf: torch.Tensor  # [n]
     cdf: torch.Tensor  # [n]
+
+
+@dataclass(frozen=True)
+class EnvmapTables(_Tables):
+    """The environment map on its lat-long grid (ops/envmap.py): rows θ ∈ [0, π]
+    from +z, columns φ ∈ [0, 2π), radiance scale premultiplied; [1,1,3] for a
+    constant envmap (and zeros without one)."""
+
+    img: torch.Tensor  # [H,W,3] f32
+    rot: torch.Tensor  # [3,3] world → map rotation (ZXZ Euler angles)
 
 
 @dataclass(frozen=True)
@@ -185,8 +228,9 @@ class SceneData(_Tables):
     emitters: Emitters
     camera: Camera
     emitter_pick: DiscretePDF
-    envmap_emitter: int  # emitter id of the constant envmap, or -1
-    envmap_radiance: torch.Tensor  # [3] (zeros without an envmap)
+    envmap_emitter: int  # emitter id of the envmap, or -1
+    envmap: EnvmapTables
+    envmap_pick: DiscretePDF  # luminance·sinθ pixel distribution ([1] for a constant map)
 
 
 @dataclass(frozen=True)
@@ -231,24 +275,14 @@ def _t(x, dtype=torch.float32) -> torch.Tensor:
     return torch.as_tensor(np.array(x), dtype=dtype)
 
 
-def check_supported(*, n_media, n_normal_maps, used_tex_types, emitter_types,
-                    emitter_geom, envmap_pixels) -> None:
+def check_supported(*, n_media, emitter_types) -> None:
     """Raise `SceneBuildError` for what this package cannot render yet. Shared
     by the XML builder and `scene_from_numpy`; each message names the
     ROADMAP item that will port the feature."""
     if n_media:
         raise SceneBuildError("participating media: ROADMAP Queue 1 item 9")
-    if n_normal_maps:
-        raise SceneBuildError("normal maps: ROADMAP Queue 1 item 8")
-    if np.any(np.asarray(used_tex_types) != TextureType.CONST):
-        raise SceneBuildError("checkerboard / image textures: ROADMAP Queue 1 item 8")
-    et = np.asarray(emitter_types)
-    if np.any(et == EmitterType.VOLUME):
+    if np.any(np.asarray(emitter_types) == EmitterType.VOLUME):
         raise SceneBuildError("volume emitters: ROADMAP Queue 1 item 9")
-    if np.any((et == EmitterType.AREA) & (np.asarray(emitter_geom) == EmitterGeom.SPHERE)):
-        raise SceneBuildError("sphere-area emitters: ROADMAP Queue 1 item 8")
-    if envmap_pixels != 1:
-        raise SceneBuildError("image-based environment maps: ROADMAP Queue 1 item 8")
 
 
 def scene_from_numpy(tree) -> SceneData:
@@ -259,19 +293,11 @@ def scene_from_numpy(tree) -> SceneData:
     what the port cannot render yet, as `scene.build` does.
     """
     g, sh, b, tx, em = tree.geometry, tree.shapes, tree.bsdfs, tree.textures, tree.emitters
-    used = np.asarray(b.albedo_tex)
-    used = used[used >= 0]
-    env_id = int(np.asarray(tree.envmap_emitter))
-    img = np.asarray(tree.envmap.img)
     check_supported(
         n_media=int((np.asarray(sh.interior_medium) >= 0).sum()
                     + (np.asarray(sh.exterior_medium) >= 0).sum()
                     + (np.asarray(tree.ambient_medium) >= 0).sum()),
-        n_normal_maps=int((np.asarray(sh.normal_tex) >= 0).sum()),
-        used_tex_types=np.asarray(tx.type)[used],
         emitter_types=em.type,
-        emitter_geom=em.geom_kind,
-        envmap_pixels=img.shape[0] * img.shape[1] if env_id >= 0 else 1,
     )
     i32 = torch.int32
     has_bvh = np.asarray(g.bvh.packed).shape[0] > 0
@@ -289,24 +315,29 @@ def scene_from_numpy(tree) -> SceneData:
             "radiance", "position", "power", "direction", "cos_falloff_start",
             "cos_falloff_end", "angular_radius", "tri_cdf", "area")},
         **{k: _t(getattr(em, k), i32) for k in (
-            "type", "geom_kind", "tri_offset", "tri_count")},
+            "type", "geom_kind", "tri_offset", "tri_count", "sphere_id")},
     )
     cam = tree.camera
     return SceneData(
         geometry=geometry,
-        shapes=Shapes(bsdf=_t(sh.bsdf, i32), emitter=_t(sh.emitter, i32)),
+        shapes=Shapes(**{k: _t(getattr(sh, k), i32) for k in ("bsdf", "emitter", "normal_tex")}),
         bsdfs=Bsdfs(
             type=_t(b.type, i32), albedo_tex=_t(b.albedo_tex, i32),
             **{k: _t(getattr(b, k)) for k in (
                 "int_ior", "ext_ior", "alpha", "kd", "ks", "disney")},
         ),
-        textures=Textures(type=_t(tx.type, i32), value=_t(tx.value)),
+        textures=Textures(
+            **{k: _t(getattr(tx, k)) for k in (
+                "value", "value2", "scale_uv", "shift_uv", "image_data")},
+            **{k: _t(getattr(tx, k), i32) for k in ("type", "image_id", "image_hw")},
+        ),
         emitters=emitters,
         camera=Camera(**{k: _t(getattr(cam, k)) for k in (
             "to_world", "fov", "near_clip", "far_clip", "lens_radius",
             "focal_distance")}),
         emitter_pick=DiscretePDF(pmf=_t(tree.emitter_pick.pmf),
                                  cdf=_t(tree.emitter_pick.cdf)),
-        envmap_emitter=env_id,
-        envmap_radiance=_t(img.reshape(-1, 3)[0] if env_id >= 0 else np.zeros(3)),
+        envmap_emitter=int(np.asarray(tree.envmap_emitter)),
+        envmap=EnvmapTables(img=_t(tree.envmap.img), rot=_t(tree.envmap.rot)),
+        envmap_pick=DiscretePDF(pmf=_t(tree.envmap_pick.pmf), cdf=_t(tree.envmap_pick.cdf)),
     )

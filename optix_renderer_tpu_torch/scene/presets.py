@@ -38,9 +38,14 @@ def _vec(v) -> str:
     return " ".join(str(x) for x in v)
 
 
-def write_quad_obj(dirpath: Path, name: str, verts) -> str:
-    """Write a one-quad OBJ (two triangles) into dirpath; returns its file name."""
-    lines = [f"v {v[0]} {v[1]} {v[2]}" for v in verts] + ["f 1 2 3 4"]
+def write_quad_obj(dirpath: Path, name: str, verts, uvs=None) -> str:
+    """Write a one-quad OBJ (two triangles), with a UV per corner when `uvs`
+    is given, into dirpath; returns its file name."""
+    lines = [f"v {v[0]} {v[1]} {v[2]}" for v in verts]
+    if uvs is None:
+        lines.append("f 1 2 3 4")
+    else:
+        lines += [f"vt {u} {v}" for u, v in uvs] + ["f 1/1 2/2 3/3 4/4"]
     (Path(dirpath) / f"{name}.obj").write_text("\n".join(lines) + "\n")
     return f"{name}.obj"
 
@@ -165,3 +170,77 @@ def make_tessellated_cornell(width: int = 800, height: int = 600, spp: int = 8,
 
     with tempfile.TemporaryDirectory(prefix="optix_torch_scene_") as tmp:
         return load_scene(tessellated_cornell_xml(tmp, width, height, spp, integrator, nu, nv))
+
+
+def textured_cornell_xml(dirpath, width: int = 800, height: int = 600, spp: int = 4,
+                         integrator: str = "direct_mis", rfilter: str | None = None) -> Path:
+    """Config T: the Cornell box with every surface feature of the scan path,
+    written with its images into `dirpath`; returns the XML path.
+
+    A checkerboard floor; a 256×256 PNG texture on the back wall; a 128×128
+    tangent-space normal map (PNG, `name="normal"`) on the left wall, whose
+    UV chart is mirrored; a third, small sphere with an area emitter; and a
+    128×64 EXR envmap rotated by Euler angles, seen through the open front.
+    The images are made from fixed formulas, so every call writes the same
+    bytes.
+    """
+    from optix_renderer_tpu_torch.utils.imageio import encode_png, write_exr
+
+    dirpath = Path(dirpath)
+    u, v = np.meshgrid((np.arange(256) + 0.5) / 256, (np.arange(256) + 0.5) / 256)
+    wall = np.stack([0.5 + 0.4 * np.sin(6.0 * u), 0.4 + 0.3 * np.cos(9.0 * v * u),
+                     0.3 + 0.25 * ((u * 8).astype(int) % 2)], axis=-1)
+    (dirpath / "wall.png").write_bytes(encode_png(wall.astype(np.float32)))
+    u, v = np.meshgrid((np.arange(128) + 0.5) / 128, (np.arange(128) + 0.5) / 128)
+    n = np.stack([0.45 * np.sin(2 * np.pi * 4 * u), 0.45 * np.sin(2 * np.pi * 3 * v),
+                  np.ones_like(u)], axis=-1)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    (dirpath / "bumps.png").write_bytes(encode_png((0.5 * n + 0.5).astype(np.float32),
+                                                   tonemap=False))
+    theta, phi = np.meshgrid((np.arange(64) + 0.5) / 64 * np.pi,
+                             (np.arange(128) + 0.5) / 128 * 2 * np.pi, indexing="ij")
+    sky = np.stack([0.2 + 0.3 * np.cos(theta) ** 2, 0.3 + 0.2 * np.sin(phi) ** 2,
+                    0.5 + 0.4 * np.cos(theta)], axis=-1)
+    sun = 40.0 * np.exp(-((theta - 1.1) ** 2 + (phi - 2.0) ** 2) / 0.02)
+    write_exr(dirpath / "sky.exr", np.maximum(sky + sun[..., None], 0.0).astype(np.float32))
+
+    uv_quad = [(0, 0), (1, 0), (1, 1), (0, 1)]
+    textures = {
+        "floor": '<texture type="checkerboard_color" name="albedo">'
+                 '<color name="value1" value="0.8 0.78 0.75"/>'
+                 '<color name="value2" value="0.15 0.2 0.3"/>'
+                 '<vector name="scale" value="0.125 0.125"/>'
+                 '<vector name="delta" value="0.03 0.05"/>'
+                 "</texture>",
+        "back": '<texture type="png_texture" name="albedo">'
+                '<string name="filename" value="wall.png"/></texture>',
+    }
+    parts = _header(width, height, spp, integrator, rfilter)
+    for name, verts in _QUADS.items():
+        uvs = {"left": [(0, 0), (0, 1), (1, 1), (1, 0)]}.get(name, uv_quad)
+        fname = write_quad_obj(dirpath, name, verts, uvs)
+        albedo = textures.get(name, f'<color name="albedo" value="{_vec(_ALBEDO[name])}"/>')
+        extra = ""
+        if name == "light":
+            extra = '<emitter type="area"><color name="radiance" value="17.0 12.0 8.0"/></emitter>'
+        elif name == "left":
+            extra = ('<texture type="png_texture" name="normal">'
+                     '<string name="filename" value="bumps.png"/>'
+                     '<boolean name="sRGB" value="false"/></texture>')
+        parts.append(f'<shape type="obj"><string name="filename" value="{fname}"/>'
+                     f'<bsdf type="diffuse">{albedo}</bsdf>{extra}</shape>')
+    parts.append('<shape type="sphere"><point name="center" value="-0.45 0.35 -0.35"/>'
+                 '<float name="radius" value="0.35"/><bsdf type="mirror"/></shape>')
+    parts.append('<shape type="sphere"><point name="center" value="0.45 0.35 0.4"/>'
+                 '<float name="radius" value="0.35"/><bsdf type="dielectric"/></shape>')
+    parts.append('<shape type="sphere"><point name="center" value="0.1 1.3 0.2"/>'
+                 '<float name="radius" value="0.12"/>'
+                 '<emitter type="area"><color name="radiance" value="6.0 5.0 4.0"/></emitter>'
+                 "</shape>")
+    parts.append('<emitter type="envmap"><texture type="png_texture">'
+                 '<string name="filename" value="sky.exr"/>'
+                 '<vector name="eulerAngles" value="30 60 15"/></texture></emitter>')
+    parts.append("</scene>")
+    path = dirpath / "textured_cbox.xml"
+    path.write_text("\n".join(parts) + "\n")
+    return path

@@ -1,10 +1,10 @@
-"""Image I/O: OpenEXR and PNG writers with no image library, and the linear → sRGB transfer.
+"""Image I/O with no image library: OpenEXR, PNG and Radiance HDR, and the sRGB transfers.
 
 Counterpart of `optix_renderer_tpu/utils/imageio.py` (the reference
-`Bitmap`, bitmap.cpp): EXR for HDR render output, PNG for LDR. The EXR codec
-is the JAX package's pure-numpy OpenEXR 2 scanline codec (uncompressed FLOAT
-channels). PNG is written with `zlib` + `struct` instead of PIL, so the
-package needs no image library.
+`Bitmap`, bitmap.cpp, and HDRLoader.h): EXR for HDR render output, PNG for
+LDR, and the texture / envmap readers. The EXR codec and the RGBE reader are
+the JAX package's pure-numpy ones. PNG is read and written with `zlib` +
+`struct` instead of PIL, so the package needs no image library.
 """
 
 from __future__ import annotations
@@ -145,6 +145,11 @@ def read_exr(path: str | Path) -> np.ndarray:
     return np.stack(chans, axis=-1)
 
 
+def srgb_to_linear(img: np.ndarray) -> np.ndarray:
+    img = np.asarray(img, np.float32)
+    return np.where(img <= 0.04045, img / 12.92, ((img + 0.055) / 1.055) ** 2.4)
+
+
 def linear_to_srgb(img: np.ndarray) -> np.ndarray:
     img = np.asarray(img, np.float32)
     return np.where(
@@ -179,3 +184,149 @@ def encode_png(image: np.ndarray, tonemap: bool = True) -> bytes:
 def write_png(path: str | Path, image: np.ndarray, tonemap: bool = True) -> None:
     """Write [h,w,3] linear float32 → PNG."""
     Path(path).write_bytes(encode_png(image, tonemap))
+
+
+# channels per PNG colour type: gray, RGB, gray + alpha, RGBA
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+
+
+def _paeth(a: int, b: int, c: int) -> int:
+    p = a + b - c
+    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+    return a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+
+
+def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the per-scanline filters 0-4 (PNG spec. 9.2) → [h, stride] uint8."""
+    rows = np.frombuffer(raw, np.uint8)
+    if rows.size != h * (stride + 1):
+        raise ValueError(f"PNG data holds {rows.size} bytes, expected {h * (stride + 1)}")
+    rows = rows.reshape(h, stride + 1)
+    out = np.zeros((h, stride), np.uint8)
+    prev = np.zeros(stride, np.uint8)
+    for y in range(h):
+        kind, cur = int(rows[y, 0]), rows[y, 1:]
+        if kind == 0:
+            line = cur.copy()
+        elif kind == 1:  # Sub: a running sum per byte lane of the pixel
+            line = (np.cumsum(cur.reshape(-1, bpp), axis=0, dtype=np.int64) % 256
+                    ).astype(np.uint8).reshape(-1)
+        elif kind == 2:  # Up
+            line = cur + prev
+        elif kind in (3, 4):  # Average, Paeth: each byte needs the one before
+            c, p, line = cur.tolist(), prev.tolist(), [0] * stride
+            for i in range(stride):
+                a = line[i - bpp] if i >= bpp else 0
+                if kind == 3:
+                    pred = (a + p[i]) >> 1
+                else:
+                    pred = _paeth(a, p[i], p[i - bpp] if i >= bpp else 0)
+                line[i] = (c[i] + pred) & 0xFF
+            line = np.asarray(line, np.uint8)
+        else:
+            raise ValueError(f"PNG scanline {y} has unknown filter type {kind}")
+        out[y] = prev = line
+    return out
+
+
+def read_png(path: str | Path) -> np.ndarray:
+    """Decode an 8-bit, non-interlaced PNG (gray, gray + alpha, RGB or RGBA)
+    → [h,w,3] float32 in [0,1]; alpha is dropped, as PIL's `convert("RGB")`
+    drops it. Palette, 16-bit, sub-byte and interlaced files raise."""
+    buf = Path(path).read_bytes()
+    if buf[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG file")
+    pos, idat, ihdr = 8, [], None
+    while pos < len(buf):
+        (n,) = struct.unpack_from(">I", buf, pos)
+        kind, data = buf[pos + 4:pos + 8], buf[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if kind == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", data)
+        elif kind == b"IDAT":
+            idat.append(data)
+        elif kind == b"IEND":
+            break
+    if ihdr is None:
+        raise ValueError(f"{path}: PNG without IHDR")
+    w, h, depth, ctype, _, _, interlace = ihdr
+    if interlace:
+        raise ValueError(f"{path}: interlaced PNG is not supported")
+    if depth != 8:
+        raise ValueError(f"{path}: {depth}-bit PNG is not supported (8-bit only)")
+    if ctype not in _PNG_CHANNELS:
+        raise ValueError(f"{path}: PNG colour type {ctype} is not supported (gray, gray + "
+                         "alpha, RGB, RGBA)")
+    ch = _PNG_CHANNELS[ctype]
+    px = _unfilter(zlib.decompress(b"".join(idat)), h, w * ch, ch).reshape(h, w, ch)
+    rgb = np.repeat(px[..., :1], 3, axis=-1) if ch <= 2 else px[..., :3]
+    return rgb.astype(np.float32) / 255.0
+
+
+def read_hdr(path: str | Path) -> np.ndarray:
+    """Read a Radiance RGBE `.hdr` file → [h,w,3] float32 linear HDR.
+
+    Counterpart of the reference's HDRLoader (HDRLoader.h:28-33 decode:
+    v = mantissa/256 · 2^(E−128)); new-style RLE scanlines and flat RGBE rows.
+    """
+    buf = Path(path).read_bytes()
+    # header: text lines until a blank line, then the resolution line
+    pos = 0
+    if not (buf.startswith(b"#?RADIANCE") or buf.startswith(b"#?RGBE")):
+        raise ValueError(f"{path}: not a Radiance HDR file")
+    while True:
+        end = buf.index(b"\n", pos)
+        line = buf[pos:end]
+        pos = end + 1
+        if line == b"":
+            break
+    end = buf.index(b"\n", pos)
+    res = buf[pos:end].split()
+    pos = end + 1
+    if len(res) != 4 or res[0] != b"-Y" or res[2] != b"+X":
+        raise ValueError(f"{path}: unsupported HDR orientation {res}")
+    h, w = int(res[1]), int(res[3])
+
+    data = np.frombuffer(buf, np.uint8, offset=pos)
+    rgbe = np.zeros((h, w, 4), np.uint8)
+    dpos = 0
+    for y in range(h):
+        # new-style RLE scanline: 0x02 0x02 hi lo, per-channel RLE runs
+        if w >= 8 and w < 32768 and data[dpos] == 2 and data[dpos + 1] == 2 and (
+            (int(data[dpos + 2]) << 8) | int(data[dpos + 3])
+        ) == w:
+            dpos += 4
+            for c in range(4):
+                x = 0
+                while x < w:
+                    count = int(data[dpos])
+                    if count > 128:  # run of a repeated byte
+                        rgbe[y, x : x + count - 128, c] = data[dpos + 1]
+                        x += count - 128
+                        dpos += 2
+                    else:  # literal bytes
+                        rgbe[y, x : x + count, c] = data[dpos + 1 : dpos + 1 + count]
+                        x += count
+                        dpos += 1 + count
+        else:  # flat RGBE row (old format; old-style 1,1,1 RLE is not read)
+            rgbe[y] = data[dpos : dpos + w * 4].reshape(w, 4)
+            dpos += w * 4
+    mant = rgbe[..., :3].astype(np.float32) / 256.0
+    expo = rgbe[..., 3].astype(np.int32) - 128
+    out = mant * np.exp2(expo.astype(np.float32))[..., None]
+    out[rgbe[..., 3] == 0] = 0.0
+    return out
+
+
+def read_image(path: str | Path) -> np.ndarray:
+    """Read PNG, `.hdr` (RGBE) or EXR → [h,w,3] float32; PNG lands in
+    [0,1], the HDR formats keep linear radiance."""
+    path = Path(path)
+    suffix = path.suffix.lower()
+    if suffix == ".exr":
+        return read_exr(path)[..., :3]
+    if suffix == ".hdr":
+        return read_hdr(path)
+    if suffix == ".png":
+        return read_png(path)
+    raise ValueError(f"{path}: unsupported image format '{suffix}' (png, hdr, exr)")

@@ -5,7 +5,8 @@ across) must both pack the path-kernel tables of the JAX package's
 `build_pathk_tables` (VPU branch) to atol 1e-6, and the medium branch's
 tables must hold the fields of the JAX MXU branch's `attr` / `etc` tables;
 `sample_to_camera_matrix` agrees to 1e-6; what the port cannot render yet
-raises.
+raises; `render()` dispatches every scene of a matrix of surface features
+as the JAX package does (`pathk_eligible`).
 """
 
 import dataclasses
@@ -119,14 +120,23 @@ def test_sample_to_camera_matrix_matches_jax():
 
 
 def test_unsupported_scenes_raise(tmp_path):
+    """Media raise, naming their ROADMAP item; a sphere-area emitter, once
+    refused, now builds and renders on the CPU (through the scan path)."""
+    from optix_renderer_tpu_torch.render.render import render
+
     medium = ('<shape type="sphere"><float name="radius" value="0.3"/>'
               '<medium type="homog" name="interior"/></shape>')
     with pytest.raises(SceneBuildError, match="item 9"):
         build.load_scene(room_xml(tmp_path, LIGHTS["point"], extra=medium))
-    sphere_light = ('<shape type="sphere"><float name="radius" value="0.3"/>'
+    sphere_light = ('<shape type="sphere"><point name="center" value="0 1 0"/>'
+                    '<float name="radius" value="0.3"/>'
                     '<emitter type="area"><color name="radiance" value="1 1 1"/></emitter></shape>')
-    with pytest.raises(SceneBuildError, match="sphere-area"):
-        build.load_scene(room_xml(tmp_path, LIGHTS["point"], extra=sphere_light))
+    scene, config, _ = build.load_scene(room_xml(tmp_path, LIGHTS["point"], extra=sphere_light))
+    assert scene.emitters.geom_kind.tolist() == [2, 0] and scene.emitters.sphere_id[0] == 0
+    assert not pathk.pathk_eligible(scene, config)
+    out = render(scene, dataclasses.replace(config, width=8, height=6, max_depth=3),
+                 sample_count=1, device="cpu")
+    assert np.isfinite(out["composite"]).all() and out["composite"].mean() > 0
     # the same refusal for a JAX scene carried across
     jscene, _, _ = jpresets.make_absorbing_sphere(width=8, height=8, spp=1)
     with pytest.raises(SceneBuildError, match="media"):
@@ -136,9 +146,9 @@ def test_unsupported_scenes_raise(tmp_path):
 def test_render_refuses_what_the_kernel_does_not_cover(tmp_path):
     """A 70-triangle strip takes the path kernel's medium branch (the JAX
     kernel's MXU branch); what the path kernel does not cover, the mitchell
-    filter, takes the general path; both render on the CPU. An integrator or
-    adaptive sampling that the port has not ported yet still raises, naming
-    its ROADMAP item."""
+    filter or the `direct_mis` integrator, takes the scan path; all render
+    on the CPU. Adaptive sampling, not ported yet, still raises, naming its
+    ROADMAP item."""
     from optix_renderer_tpu_torch.render.render import render
 
     # a 66-triangle strip (70 in all): the medium branch
@@ -161,7 +171,70 @@ def test_render_refuses_what_the_kernel_does_not_cover(tmp_path):
     assert not pathk.pathk_eligible(scene, mitchell)
     out = render(scene, mitchell, sample_count=1, device="cpu")
     assert (out["weights"] > 0).all() and np.isfinite(out["composite"]).all()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        render(scene, dataclasses.replace(config, integrator="direct_mis"), device="cpu")
+    direct = dataclasses.replace(config, width=8, height=6, integrator="direct_mis")
+    assert not pathk.pathk_eligible(scene, direct)
+    out = render(scene, direct, sample_count=1, device="cpu")
+    assert (out["weights"] > 0).all() and np.isfinite(out["composite"]).all()
     with pytest.raises(NotImplementedError, match="item 11"):
         render(scene, dataclasses.replace(config, adaptive=True), device="cpu")
+
+
+def _dispatch_scene(tmp_path, kind):
+    """A room (or the Cornell box) with one surface feature of the dispatch matrix."""
+    from optix_renderer_tpu_torch.utils.imageio import encode_png, write_exr
+
+    rng = np.random.default_rng(7)
+    tex = tmp_path / "tex.png"
+    tex.write_bytes(encode_png(rng.uniform(size=(8, 8, 3)).astype(np.float32)))
+    write_exr(tmp_path / "env.exr", rng.uniform(0.1, 2.0, (8, 16, 3)).astype(np.float32))
+    light, extra, cfg = LIGHTS["point"], "", {}
+    if kind == "no_emitters":
+        light = ""
+    elif kind == "sphere_light":
+        extra = ('<shape type="sphere"><point name="center" value="0 1 0"/>'
+                 '<float name="radius" value="0.3"/><emitter type="area">'
+                 '<color name="radiance" value="1 1 1"/></emitter></shape>')
+    elif kind == "checker":
+        extra = ('<shape type="sphere"><point name="center" value="0 1 0"/>'
+                 '<float name="radius" value="0.3"/><bsdf type="diffuse">'
+                 '<texture type="checkerboard_color" name="albedo"/></bsdf></shape>')
+    elif kind == "normal_map":
+        extra = ('<shape type="sphere"><point name="center" value="0 1 0"/>'
+                 '<float name="radius" value="0.3"/><texture type="png_texture" name="normal">'
+                 '<string name="filename" value="tex.png"/></texture></shape>')
+    elif kind == "image_envmap":
+        light += ('<emitter type="envmap"><texture type="png_texture">'
+                  '<string name="filename" value="env.exr"/></texture></emitter>')
+    elif kind == "mitchell":
+        cfg = {"rfilter": "mitchell"}
+    elif kind == "direct_mis":
+        cfg = {"integrator": "direct_mis"}
+    if kind == "cornell":
+        from optix_renderer_tpu_torch.scene.presets import cornell_box_xml
+
+        return str(cornell_box_xml(tmp_path, 20, 14, 1)), cfg
+    return room_xml(tmp_path, light, extra=extra), cfg
+
+
+@pytest.mark.parametrize("kind", ["no_emitters", "sphere_light", "checker", "normal_map",
+                                  "image_envmap", "mitchell", "direct_mis", "cornell"])
+def test_dispatch_matches_jax(tmp_path, kind):
+    """The port's `pathk_eligible` (and the reason behind it) against the JAX
+    package's on the same XML, built by each builder and carried across.
+    Both builders pad an empty emitter table with one dark point light, so a
+    scene lit by nothing still takes the path kernel in both."""
+    xml, cfg = _dispatch_scene(tmp_path, kind)
+    js, jc, _ = jbuild.load_scene(xml)
+    ts, tc, _ = build.load_scene(xml)
+    jc, tc = dataclasses.replace(jc, **cfg), dataclasses.replace(tc, **cfg)
+    want = jpathk.pathk_eligible(js, jc)
+    assert want == (kind in ("no_emitters", "cornell"))
+    assert pathk.pathk_eligible(ts, tc) == want
+    assert pathk.pathk_eligible(scene_from_numpy(jax.tree.map(np.asarray, js)), tc) == want
+    reason = pathk.pathk_unsupported(ts, tc)
+    assert (reason is None) == want
+    if not want:
+        word = {"sphere_light": "sphere-area", "checker": "texture", "normal_map": "normal map",
+                "image_envmap": "environment map", "mitchell": "mitchell",
+                "direct_mis": "direct_mis"}[kind]
+        assert word in reason, reason
