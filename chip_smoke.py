@@ -101,9 +101,30 @@ Drives the port's main path (`optix_renderer_tpu_torch`, no JAX) once:
 16. holds the scan path on the card against tests/golden/cbox_{direct_mis,
    normals}.exr by phase 10's rule, and config T at 64x48, 4 spp, box
    filter (direct_mis and path_mis) on the card against the same render on
-   the CPU (median relative error < 1e-4, means within 1e-3).
+   the CPU (median relative error < 1e-4, means within 1e-3);
+17. holds the tracking kernel (`csrc/track.cu`: `delta_track`,
+   `ratio_track`) bit for bit against its plain versions (the lockstep
+   loops of `ops/volume_grid.py`) on the card: t_event / T, K and the four
+   pcg32 state words, on config H's 480,000 camera rays into its
+   128^3 grid (delta tracking) and on shadow rays from their collision
+   points toward the ceiling light (ratio tracking); checks both on a
+   constant-density grid against exp(-sigma_t d); prints the kernel's time
+   alone (torch.profiler) and behind a spin, the plain version's, the
+   bound from the run's sum of K, L, and ptxas' registers / spills;
+18. renders config H (`scene/presets.py: medium_cornell_xml`, kind "H":
+   the Cornell room with a pass-through box of voxel-grid fog) at
+   800x600, depth 8, 1 spp after 1, with path_vol_mis and path_vol_mats,
+   and config V (kind "V": a homogeneous Henyey-Greenstein sphere and a
+   volume light) with path_vol_mis, through `render()`, asserting the
+   exact launch counts (delta_track D*S, ratio_track 8*D*S under
+   path_vol_mis and 0 under path_vol_mats, isect_brute 9*D*S / D*S, none
+   of the tracking kernels for config V, no path kernel), a torch.profiler
+   breakdown of one config H render, and config H through the CLI;
+19. renders configs H and V at 64x48, 4 spp, box filter, on the card and
+   on the CPU: median relative error < 1e-3, means within 10 %, and the
+   pixels over 1e-3 counted.
 
-Every phase raises on failure. The second-to-last line is a JSON object with
+Every phase prints its seconds and raises on failure. The second-to-last line is a JSON object with
 each kernel's route, source, launches, error, times and bound; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -148,10 +169,27 @@ OPS_SPHERE = 39
 # rows of config M's 800x600 launch that phase 12 holds against the plain
 # version (its LBVH walk took 65-100 s for the 300 on an H100)
 M_REF_ROWS = 300
+TRACK_SOURCE = "optix_renderer_tpu_torch/csrc/track.cu"
+# FP32 operations of one tracking step (csrc/track.cu: walk_lane's loop
+# body and density): the free flight 5, its escape test 1, the point 6, the
+# lookup 65 (box-relative coordinates 12, index coordinates 6, floor 3,
+# fractions 3, 1 - w 3, weights 16, products 8, sum 7, bbox test 6, scale
+# 1), the real / null test 3 (ratio tracking: the factor and the cut, 6);
+# and per lane the setup, the bbox clip and majorant (~40)
+OPS_STEP = 80
+OPS_LANE = 40
+# bytes one lane moves once: ro, rd, t_max, med, four state words in;
+# t_event / T, K, two state words out
+LANE_BYTES = 12 + 12 + 4 + 4 + 32 + 4 + 4 + 16
+
+
+_last_phase = [time.time()]
 
 
 def phase(n: int, msg: str) -> None:
-    print(f"[phase {n}] {msg}", flush=True)
+    now = time.time()
+    print(f"[phase {n}] {msg} ({now - _last_phase[0]:.1f} s)", flush=True)
+    _last_phase[0] = now
 
 
 def film(rows: torch.Tensor, h: int, w: int) -> dict:
@@ -319,11 +357,12 @@ def hold_golden(integ: str, dev) -> dict:
     return st
 
 
-def device_breakdown(fn, top: int = 8) -> dict:
+def device_breakdown(fn, top: int = 8, sums: tuple = ()) -> dict:
     """Wall clock of `fn()` under torch.profiler, the device's busy time (its
     CUDA kernels' self time: each CPU op's row repeats its kernels' time, so
-    only the CUDA events are summed), their count, the idle share and the
-    `top` kernels by device time (ms)."""
+    only the CUDA events are summed), their count, the idle share, the
+    `top` kernels by device time (ms) and, per name fragment of `sums`, the
+    device ms of the kernels whose name holds it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -336,7 +375,9 @@ def device_breakdown(fn, top: int = 8) -> dict:
     ev.sort(key=lambda e: -e.self_device_time_total)
     return {"wall_s": wall, "device_busy_s": busy, "kernels": sum(e.count for e in ev),
             "idle_share": 1.0 - busy / wall,
-            "top_ms": {e.key[:50]: e.self_device_time_total / 1e3 for e in ev[:top]}}
+            "top_ms": {e.key[:50]: e.self_device_time_total / 1e3 for e in ev[:top]},
+            **{f"{frag}_ms": sum(e.self_device_time_total for e in ev if frag in e.key) / 1e3
+               for frag in sums}}
 
 
 def main() -> None:
@@ -1087,6 +1128,181 @@ def main() -> None:
     phase(16, "the scan path reproduces cbox_direct_mis / cbox_normals, and config T on cuda "
               "matches the CPU")
 
+    # ---- 17. the tracking kernel against its plain version
+    from optix_renderer_tpu_torch.ops import volume_grid as vg
+    from optix_renderer_tpu_torch.ops.cuda import track
+    from optix_renderer_tpu_torch.render import sampler as smp
+    from optix_renderer_tpu_torch.scene.data import Media, corner_stack
+    from optix_renderer_tpu_torch.scene.presets import medium_cornell_xml
+    from optix_renderer_tpu_torch.tools.time_isect import pixel_rays
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        scene_h, cfg_h, _ = load_scene(medium_cornell_xml(Path(tmp), 800, 600, 1, "path_vol_mis",
+                                                          "H"))
+        scene_v, cfg_v, _ = load_scene(medium_cornell_xml(Path(tmp), 800, 600, 1, "path_vol_mis",
+                                                          "V"))
+    cfg_h, cfg_v = (dataclasses.replace(c, max_depth=8) for c in (cfg_h, cfg_v))
+    media_h = scene_h.media.to(dev)
+    stack_mb = (media_h.vol_corners.numel() + media_h.vol_tcorners.numel()) * 4 / 1e6
+    het = int(torch.nonzero(scene_h.media.type == 2)[0, 0])
+    n_h = cfg_h.width * cfg_h.height
+    cam = pixel_rays(scene_h, cfg_h, 1, rng, dev)
+    med_h = torch.full((n_h,), het, dtype=torch.int32, device=dev)
+    state0 = smp.make_sampler(torch.arange(n_h, device=dev), 0).state
+    inf_h = torch.full((n_h,), float("inf"), device=dev)
+
+    def hold_tracker(what, ratio, o, d, dist):
+        """The kernel against the plain lockstep loop on the same inputs:
+        out, K and the state words equal (torch.equal)."""
+        got = track.track(ratio, media_h, med_h, state0, o, d, dist)
+        plain = vg.ratio_track_ref if ratio else vg.delta_track_ref
+        plain_call = lambda: plain(media_h, med_h, smp.Sampler(state0), o, d, dist)
+        plain_call()  # warm-up: the first call also loads torch's kernels
+        ref, plain_ms = timed(plain_call)
+        torch.cuda.synchronize()
+        same = [torch.equal(got[0], ref[1]), torch.equal(got[1], ref[2])] + [
+            torch.equal(a, b) for a, b in zip(got[2], ref[0].state)]
+        fin = torch.isfinite(ref[1])
+        err = float((got[0] - ref[1])[fin].abs().max()) if bool(fin.any()) else 0.0
+        k_sum, n_iter = int(got[1].sum()), int(got[3].item())
+        print(f"  {what}: {o.shape[0]} lanes, active {float((got[1] > 0).float().mean()):.4f}, "
+              f"sum K {k_sum}, mean K over active lanes "
+              f"{k_sum / max(int((got[1] > 0).sum()), 1):.3f}, L {n_iter}; out / K / state "
+              f"words equal to the plain version: {same}; plain {plain_ms:.3f} ms", flush=True)
+        if not all(same):
+            raise AssertionError(f"{what}: the kernel differs from its plain version: {same}")
+        call = lambda: track.track(ratio, media_h, med_h, state0, o, d, dist)
+        alone = profiled_ms(call, 7, "walk_kernel") + profiled_ms(call, 7, "advance_kernel")
+        spin = float(np.median(spin_ms(call, 7)))
+        bnd = bound(k_sum * OPS_STEP + o.shape[0] * OPS_LANE, k_sum * 32 + o.shape[0] * LANE_BYTES)
+        print(f"  {what}: kernel alone {alone:.4f} ms (torch.profiler, walk + advance), behind a "
+              f"spin {spin:.4f} ms, plain {plain_ms:.3f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}) "
+              f"on {smi}", flush=True)
+        return {"err": err, "ms": alone, "ms_behind_spin": spin, "plain_ms": plain_ms,
+                "bound": bnd, "sum_k": k_sum, "L": n_iter, "lanes": o.shape[0]}
+
+    delta_row = hold_tracker("delta_track, config H camera rays", False, cam.o, cam.d, inf_h)
+    t_ev = track.track(False, media_h, med_h, state0, cam.o, cam.d, inf_h)[0]
+    # shadow rays: from each collision point (else a point of the box)
+    # toward a random point of the ceiling light
+    u = torch.from_numpy(rng.uniform(size=(n_h, 6)).astype(np.float32)).to(dev)
+    lo, hi = media_h.vol_bbox_min[0], media_h.vol_bbox_max[0]
+    hit = torch.isfinite(t_ev)[:, None]
+    o_s = torch.where(hit, cam.o + cam.d * torch.where(hit[:, 0], t_ev, 0.0)[:, None],
+                      lo + (hi - lo) * u[:, :3])
+    light = torch.stack([-0.4 + 0.8 * u[:, 3], torch.full_like(u[:, 4], 1.99),
+                         -0.4 + 0.8 * u[:, 5]], dim=-1)
+    to_l = light - o_s
+    dist_s = to_l.norm(dim=-1)
+    ratio_row = hold_tracker("ratio_track, shadow rays toward the light", True, o_s,
+                             to_l / dist_s[:, None], dist_s)
+    track_regs = {k: v for k, v in ptxas_report(info.get("ptxas", "")).items()
+                  if re.search(r"walk_kernel|advance_kernel", k)}
+    print(f"  tracking kernels (ptxas): {track_regs}; corner stacks {stack_mb:.1f} MB")
+    if len(track_regs) != 3:
+        raise AssertionError(f"ptxas reported {len(track_regs)} tracking kernels, not 3")
+    # a constant-density 16^3 grid on the unit cube, sigma_t 4: escape
+    # probability over depth 1 and mean T over 0.6, against exp(-sigma_t d)
+    # (the trilinear ramp at a face takes 1/128 off the depth)
+    one = lambda v, dt=torch.float32: torch.tensor(v, dtype=dt, device=dev)
+    grid = torch.from_numpy(corner_stack(np.ones((1, 16, 16, 16), np.float32))).to(dev)
+    const = Media(type=one([2], torch.int32), sigma_a=one([[2.0] * 3]), sigma_s=one([[2.0] * 3]),
+                  phase_type=one([0], torch.int32), phase_g=one([0.0]),
+                  emitter=one([-1], torch.int32), vol_id=one([0], torch.int32),
+                  density_scale=one([1.0]), temperature_scale=one([0.0]),
+                  vol_dims=one([[16] * 3], torch.int32), vol_bbox_min=one([[-0.5] * 3]),
+                  vol_bbox_max=one([[0.5] * 3]), vol_majorant=one([1.0]), vol_corners=grid,
+                  vol_tcorners=grid, grid=(16, 16, 16))
+    n_c = 1 << 16
+    o_c = one([0.0, -0.5, 0.0]).expand(n_c, 3).contiguous()
+    d_c = one([0.0, 1.0, 0.0]).expand(n_c, 3).contiguous()
+    med_c = torch.zeros(n_c, dtype=torch.int32, device=dev)
+    st_c = smp.make_sampler(torch.arange(n_c, device=dev), 1).state
+    esc = float(torch.isinf(track.track(False, const, med_c, st_c, o_c, d_c,
+                                        torch.ones(n_c, device=dev))[0]).float().mean())
+    tr_c = track.track(True, const, med_c, st_c, o_c, d_c, torch.full((n_c,), 0.6, device=dev))[0]
+    want_esc, want_tr = np.exp(-4.0 * (1 - 1 / 64)), np.exp(-4.0 * (0.6 - 1 / 128))
+    print(f"  constant grid, sigma_t 4: escape {esc:.5f} (analytic {want_esc:.5f}), mean T "
+          f"{float(tr_c.mean()):.5f} (analytic {want_tr:.5f})")
+    if not (abs(esc - want_esc) < 0.005 and abs(float(tr_c.mean()) - want_tr) < 0.02 * want_tr):
+        raise AssertionError("the tracking kernel misses the constant grid's analytic statistics")
+    phase(17, "the tracking kernel equals its plain version bit for bit (delta on config H's "
+              "camera rays, ratio on shadow rays) and meets the constant grid's statistics")
+
+    # ---- 18. configs H and V through render(), with exact launch counts
+    def media_render(scene, cfg):
+        """(film, s, launches) of one timed 1-spp `render()` after a 1-spp
+        warm-up, the counts set to 0 just before it and read just after."""
+        render(scene, cfg, sample_count=1, device=dev)
+        for counts in (isect.LAUNCHES, track.LAUNCHES):
+            for k in counts:
+                counts[k] = 0
+        pathk.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = render(scene, cfg, sample_count=1, device=dev)  # returns host numpy
+        return out, time.time() - t0, {**isect.LAUNCHES, **track.LAUNCHES,
+                                       "pathk": pathk.LAUNCHES}
+
+    D = cfg_h.max_depth
+    media_runs = {}
+    for name, scene, cfg in (("config_h_path_vol_mis", scene_h, cfg_h),
+                             ("config_h_path_vol_mats",
+                              scene_h, dataclasses.replace(cfg_h, integrator="path_vol_mats")),
+                             ("config_v_path_vol_mis", scene_v, cfg_v)):
+        mis = cfg.integrator == "path_vol_mis"
+        heterog = name.startswith("config_h")
+        want = {"isect_brute": D * (9 if mis else 1), "isect_bvh_closest": 0, "isect_bvh_any": 0,
+                "delta_track": D if heterog else 0, "ratio_track": 8 * D if heterog and mis else 0,
+                "pathk": 0}
+        if pathk.pathk_eligible(scene, cfg):
+            raise AssertionError(f"{name}: the path kernel took a media scene")
+        out, dt, ln = media_render(scene, cfg)
+        comp = out["composite"]
+        media_runs[name] = {"s": dt, "mpaths_s": n_h / dt / 1e6, "launches": ln,
+                            "film_mean": float(comp.mean())}
+        print(f"  {name} {cfg.width}x{cfg.height} depth {D}, 1 spp: {dt:.4f} s, "
+              f"{n_h / dt / 1e6:.4f} Mpaths/s on {smi}; launches {ln}; film mean "
+              f"{comp.mean():.5f}", flush=True)
+        if ln != want:
+            raise AssertionError(f"{name}: launches {ln}, expected {want}")
+        if not (np.isfinite(comp).all() and comp.shape == (cfg.height, cfg.width, 3)
+                and comp.mean() > 0):
+            raise AssertionError(f"{name}: the film is not finite / positive")
+    prof_h = device_breakdown(lambda: render(scene_h, cfg_h, sample_count=1, device=dev), top=10,
+                              sums=("walk_kernel", "advance_kernel", "brute_kernel"))
+    print(f"  config H 800x600 path_vol_mis, 1 spp under the profiler: {json.dumps(prof_h)}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        xml = medium_cornell_xml(Path(tmp), 160, 120, 1, "path_vol_mis", "H")
+        subprocess.run([sys.executable, "-m", "optix_renderer_tpu_torch", "render", str(xml),
+                        "--device", "cuda", "--depth", "8", "--size", "160x120"], cwd=ROOT,
+                       check=True, timeout=600)
+        img = read_exr(xml.with_suffix(".exr"))
+        if not (xml.with_suffix(".png").stat().st_size > 0 and img.shape == (120, 160, 3)
+                and np.isfinite(img).all() and img.mean() > 0):
+            raise AssertionError("CLI output of config H is missing or malformed")
+    phase(18, "configs H and V rendered through render() with the exact launch counts, and "
+              "config H through the CLI: " + ", ".join(
+                  f"{k} {v['mpaths_s']:.3f}" for k, v in media_runs.items()) + " Mpaths/s")
+
+    # ---- 19. configs H and V on the card against the CPU
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        small = {k: load_scene(medium_cornell_xml(Path(tmp), 64, 48, 4, "path_vol_mis", k,
+                                                  rfilter="box"))[:2] for k in "HV"}
+    for kind, (scene, cfg) in small.items():
+        cfg = dataclasses.replace(cfg, max_depth=8)
+        a = render(scene, cfg, device=dev)["composite"]
+        b = render(scene, cfg, device="cpu")["composite"]
+        rel = np.abs(a - b) / (np.abs(b) + 1e-3)
+        st = {"median_rel_err": float(np.median(rel)), "max_abs_err": float(np.abs(a - b).max()),
+              "pixels_over_1e-3": int((rel.max(axis=-1) > 1e-3).sum()),
+              "mean_cuda": float(a.mean()), "mean_cpu": float(b.mean())}
+        print(f"  config {kind} 64x48 box path_vol_mis, 4 spp, cuda against cpu: {json.dumps(st)}")
+        if not (st["median_rel_err"] < 1e-3
+                and abs(st["mean_cuda"] - st["mean_cpu"]) <= 0.1 * abs(st["mean_cpu"])):
+            raise AssertionError(f"config {kind}: the card's film differs from the CPU's: {st}")
+    phase(19, "configs H and V on cuda match the CPU by the median statistic")
+
     def row(name, source, replaces, launches, err, ms, plain_ms, bnd, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -1146,6 +1362,17 @@ def main() -> None:
                        "us_per_iter": r["us_per_iter"], "ns_per_lane_iter": r["ns_per_lane_iter"],
                        "plain_ms_64": ic_plain[m], "sms": ic_sms[m]}
                    for m, r in parts.items()}),
+        *(row(name, TRACK_SOURCE, f"optix_renderer_tpu/ops/volume_grid.py:{line}",
+              media_runs["config_h_path_vol_mis"]["launches"][name], r["err"], r["ms"],
+              r["plain_ms"], r["bound"], ms_behind_spin=r["ms_behind_spin"], sum_k=r["sum_k"],
+              L=r["L"], lanes=r["lanes"], shape=shape,
+              kernel=f"walk_kernel<{ratio}> + advance_kernel (one thread per lane, then "
+                     "pcg32 jump-ahead by the lockstep draws)",
+              no_pallas_counterpart="replaces the XLA lax.while_loop", ptxas=track_regs,
+              launches_per_render={k: v["launches"][name] for k, v in media_runs.items()})
+          for name, line, r, ratio, shape in (
+              ("delta_track", 124, delta_row, "false", "config H's 480,000 camera rays"),
+              ("ratio_track", 202, ratio_row, "true", "480,000 shadow rays toward the light"))),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

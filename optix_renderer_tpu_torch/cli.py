@@ -73,7 +73,8 @@ def main(argv=None) -> int:
     pr.add_argument("--spp", type=int, help="override sample count")
     pr.add_argument("--size", help="override resolution, e.g. 800x600")
     pr.add_argument("--integrator", help="override integrator: normals, av, direct, direct_ems, "
-                    "direct_mats, direct_mis, preview, envmaptester, path_mats, path_mis")
+                    "direct_mats, direct_mis, preview, envmaptester, path_mats, path_mis, "
+                    "path_vol_mats, path_vol_mis")
     pr.add_argument("--depth", type=int, help="max path depth")
     pr.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="cuda launches the CUDA kernels; cpu runs their plain torch versions")

@@ -106,6 +106,31 @@ def pcg32_next_uint(s: Pcg32State) -> tuple[Pcg32State, torch.Tensor]:
     return _pcg32_step(s), out
 
 
+def pcg32_advance(s: Pcg32State, delta: int) -> Pcg32State:
+    """The state after `delta` steps, by jump-ahead in O(log delta) steps
+    (pcg32.h advance(), Brown's "random number generation with arbitrary
+    strides"): the multiplier's powers are Python integers mod 2^64, the
+    increment's sums tensors of (hi, lo) words, as in `_pcg32_step`."""
+    mask64 = (1 << 64) - 1
+    cur_mult = (PCG32_MULT[0] << 32) | PCG32_MULT[1]
+    cur_hi, cur_lo = s.inc_hi, s.inc_lo  # cur_plus
+    acc_mult = 1
+    acc_hi, acc_lo = torch.zeros_like(s.inc_hi), torch.zeros_like(s.inc_lo)  # acc_plus
+    delta = int(delta) & mask64
+    while delta:
+        if delta & 1:
+            acc_mult = (acc_mult * cur_mult) & mask64
+            acc_hi, acc_lo = _mul64_lo(acc_hi, acc_lo, cur_mult >> 32, cur_mult & M32)
+            acc_hi, acc_lo = _add64(acc_hi, acc_lo, cur_hi, cur_lo)
+        m1 = (cur_mult + 1) & mask64
+        cur_hi, cur_lo = _mul64_lo(cur_hi, cur_lo, m1 >> 32, m1 & M32)
+        cur_mult = (cur_mult * cur_mult) & mask64
+        delta >>= 1
+    hi, lo = _mul64_lo(s.state_hi, s.state_lo, acc_mult >> 32, acc_mult & M32)
+    hi, lo = _add64(hi, lo, acc_hi, acc_lo)
+    return Pcg32State(hi, lo, s.inc_hi, s.inc_lo)
+
+
 def uint32_to_float01(bits: torch.Tensor) -> torch.Tensor:
     """[0,1) float32 from 32 bits, exactly pcg32::nextFloat's bit trick."""
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)

@@ -1,16 +1,16 @@
 """Sample warps used by the BSDFs and emitters of the general path.
 
 The subset of `optix_renderer_tpu/core/warp.py` (reference warp.cpp) that
-`ops/bsdf.py`, `ops/emitter.py`, `ops/camera.py` and
-`integrators/simple.py` call; `[..., 2]` uniforms in, batched points or
-directions out.
+`ops/bsdf.py`, `ops/emitter.py`, `ops/camera.py`, `ops/medium.py` and
+`integrators/simple.py` call; `[..., 2]` (or `[..., 3]`) uniforms in,
+batched points or directions out, and the pdfs of the phase-function warps.
 """
 
 from __future__ import annotations
 
 import torch
 
-from optix_renderer_tpu_torch.core.math import PI, safe_sqrt
+from optix_renderer_tpu_torch.core.math import EPSILON, INV_PI, PI, safe_sqrt
 
 
 def square_to_uniform_disk(s: torch.Tensor) -> torch.Tensor:
@@ -26,6 +26,16 @@ def square_to_uniform_sphere(s: torch.Tensor) -> torch.Tensor:
     r = safe_sqrt(1.0 - z * z)
     sigma = 2.0 * PI * s[..., 1]
     return torch.stack([r * torch.cos(sigma), r * torch.sin(sigma), z], dim=-1)
+
+
+def square_to_uniform_sphere_volume(s3: torch.Tensor) -> torch.Tensor:
+    """Uniform inside the unit ball from a 3-D sample (warp.cpp:88-92)."""
+    r = torch.pow(s3[..., 2], 1.0 / 3.0)
+    return r[..., None] * square_to_uniform_sphere(s3[..., :2])
+
+
+def square_to_uniform_sphere_volume_pdf(p: torch.Tensor) -> torch.Tensor:
+    return torch.where((p * p).sum(dim=-1) <= 1.0, 3.0 / (4.0 * PI), 0.0)
 
 
 def square_to_uniform_sphere_cap(s: torch.Tensor, cos_theta_max: torch.Tensor) -> torch.Tensor:
@@ -65,3 +75,41 @@ def square_to_uniform_triangle(s: torch.Tensor) -> torch.Tensor:
     u = 1.0 - su1
     v = s[..., 1] * su1
     return torch.stack([u, v, 1.0 - u - v], dim=-1)
+
+
+def _polar(cos_theta: torch.Tensor, phi: torch.Tensor) -> torch.Tensor:
+    sin_theta = safe_sqrt(1.0 - cos_theta * cos_theta)
+    return torch.stack([sin_theta * torch.cos(phi), sin_theta * torch.sin(phi), cos_theta], dim=-1)
+
+
+def square_to_henyey_greenstein(s: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Henyey–Greenstein sampling (warp.cpp:168-198); isotropic for |g| < ε."""
+    iso = torch.abs(g) < EPSILON
+    safe_g = torch.where(iso, 1.0, g)
+    factor = (1.0 - g * g) / (1.0 - g + 2.0 * g * s[..., 0])
+    cos_aniso = (1.0 + g * g - factor * factor) / (2.0 * safe_g)
+    cos_theta = torch.where(iso, 1.0 - 2.0 * s[..., 0], cos_aniso)
+    return _polar(cos_theta, 2.0 * PI * s[..., 1])
+
+
+def square_to_henyey_greenstein_pdf(m: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """warp.cpp:200-205."""
+    g2 = g * g
+    return 0.25 * INV_PI * (1.0 - g2) / torch.pow(
+        torch.clamp(1.0 + g2 - 2.0 * g * m[..., 2], min=1e-12), 1.5)
+
+
+def square_to_schlick(s: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Schlick phase sampling by the exact inverse CDF of its pdf: the JAX
+    package's deliberate deviation from warp.cpp:207-234 (warp.py:162-182)."""
+    iso = torch.abs(k) < EPSILON
+    safe_k = torch.where(iso, 1.0, k)
+    cos_aniso = (1.0 / safe_k) * (1.0 - (1.0 - k * k) / (1.0 - k + 2.0 * k * s[..., 0]))
+    cos_theta = torch.where(iso, 1.0 - 2.0 * s[..., 0], cos_aniso)
+    return _polar(cos_theta, 2.0 * PI * s[..., 1])
+
+
+def square_to_schlick_pdf(m: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """warp.cpp:236-241."""
+    factor = 1.0 - k * m[..., 2]
+    return 0.25 * INV_PI * (1.0 - k * k) / torch.clamp(factor * factor, min=1e-12)

@@ -6,13 +6,14 @@ integrator has the signature
     li(scene, config, ray, sampler) -> (L [N,3], albedo [N,3], normal [N,3], sampler)
 
 The port has the ten surface integrators, the single-bounce ones of
-`simple.py` and `path_mats` / `path_mis`; the JAX package's other
-integrators raise `NotImplementedError` naming the ROADMAP item that ports
-them.
+`simple.py` and `path_mats` / `path_mis`, and the volumetric
+`path_vol_mats` / `path_vol_mis` of `volpath.py`; the JAX package's photon
+mapper raises `NotImplementedError` naming the ROADMAP item that ports it.
 """
 
 from optix_renderer_tpu_torch.integrators import path as _path
 from optix_renderer_tpu_torch.integrators import simple as _simple
+from optix_renderer_tpu_torch.integrators import volpath as _volpath
 
 REGISTRY = {
     "normals": _simple.li_normals,
@@ -25,12 +26,12 @@ REGISTRY = {
     "envmaptester": _simple.li_envmaptester,
     "path_mats": _path.li_path_mats,
     "path_mis": _path.li_path_mis,
+    "path_vol_mats": _volpath.li_path_vol_mats,
+    "path_vol_mis": _volpath.li_path_vol_mis,
 }
 
 # the JAX package's other integrators → the ROADMAP item that ports them
 _NOT_YET = {
-    "path_vol_mats": "ROADMAP Queue 1 item 9 (media)",
-    "path_vol_mis": "ROADMAP Queue 1 item 9 (media)",
     "photonmapper": "ROADMAP Queue 1 item 13 (photon mapping)",
 }
 

@@ -22,7 +22,7 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("mega.cuh", "walk.cuh", "pathk.cu", "isect.cu", "probes.cu")
+SOURCES = ("mega.cuh", "walk.cuh", "pathk.cu", "isect.cu", "probes.cu", "track.cu")
 UNITS = tuple(name for name in SOURCES if name.endswith(".cu"))
 # no --use_fast_math: the samplers go through logf/sinf/cosf and must keep
 # full-precision results to track the plain version per pixel.
@@ -143,6 +143,18 @@ def load() -> ctypes.CDLL:
             vp,  # stream
         ]
         lib.iter_cost_launch.restype = i
+        lib.track_launch.argtypes = [
+            i,  # ratio: 0 delta tracking, 1 ratio tracking
+            vp, vp, vp, vp, i,  # ro, rd, t_max, med, n
+            vp, vp, vp, vp,  # pcg32 state hi, lo, increment hi, lo (int64 words)
+            vp, vp, vp, vp, vp,  # media: type, sigma_a, sigma_s, density scale, vol id
+            vp, vp, vp, vp, vp,  # volumes: bbox min, max, dims, majorant, corner stack
+            i, i, i,  # the padded grid D, H, W
+            vp, vp, vp, vp,  # out t_event / T, K, new state hi, lo
+            vp,  # iters_max: one uint32, set to L
+            vp,  # stream
+        ]
+        lib.track_launch.restype = i
         lib.pathk_error_string.argtypes = [i]
         lib.pathk_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -164,6 +164,11 @@ def mega_unsupported(scene, config) -> str | None:
         return "sphere-area emitters take the scan path"
     if config.integrator not in ("path_mis", "path_mats"):
         return f"integrator '{config.integrator}' takes the scan path"
+    sh = scene.shapes
+    if np.any(npy(sh.interior_medium) >= 0) or np.any(npy(sh.exterior_medium) >= 0):
+        return "a shape with an interior or exterior medium: media take the scan path"
+    if scene.ambient_medium >= 0:
+        return "an ambient medium: media take the scan path"
     if config.adaptive:
         return "adaptive sampling: ROADMAP Queue 1 item 11"
     if np.any(npy(scene.shapes.normal_tex) >= 0):

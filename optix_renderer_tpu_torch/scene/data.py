@@ -2,11 +2,12 @@
 
 The subset of `optix_renderer_tpu/scene/data.py` that the path kernel and
 the general path read: triangles (with their LBVH tables from 257
-triangles on) and spheres, the shape/BSDF/texture attachment tables
+triangles on) and spheres, the shape/BSDF/texture/medium attachment tables
 (constant, checkerboard and image textures, normal maps), emitters with
-their triangle CDFs and sphere ids, the emitter-pick distribution, the
-camera and the environment map's lat-long tables with their pixel
-distribution. Field names and layouts are the JAX package's, so
+their triangle CDFs, sphere ids and volume-sampling tables, the media with
+their phase functions and voxel-grid corner stacks, the emitter-pick
+distribution, the camera and the environment map's lat-long tables with
+their pixel distribution. Field names and layouts are the JAX package's, so
 `scene_from_numpy` can carry a JAX scene across by name. Every table has
 `.to(device)`.
 """
@@ -41,6 +42,18 @@ class EmitterType:
     ENVMAP = 3
     DIRECTIONAL = 4
     VOLUME = 5
+
+
+class MediumType:
+    VACUUM = 0
+    HOMOG = 1
+    HETEROG = 2
+
+
+class PhaseType:
+    ISO = 0
+    HG = 1
+    SCHLICK = 2
 
 
 class TextureType:
@@ -119,8 +132,10 @@ class Geometry(_Tables):
 
 @dataclass(frozen=True)
 class Shapes(_Tables):
-    bsdf: torch.Tensor  # [N] i32 bsdf id
+    bsdf: torch.Tensor  # [N] i32 bsdf id, −1 for a pass-through medium boundary
     emitter: torch.Tensor  # [N] i32 emitter id or -1
+    interior_medium: torch.Tensor  # [N] i32 medium id or -1
+    exterior_medium: torch.Tensor  # [N] i32 medium id or -1
     normal_tex: torch.Tensor  # [N] i32 tangent-space normal-map texture id or -1
     # whether any shape has a normal map; computed when None, so that
     # `integrators/common.trace` skips the map's arithmetic without a sync
@@ -182,15 +197,52 @@ class Emitters(_Tables):
     tri_count: torch.Tensor  # [E] i32
     tri_cdf: torch.Tensor  # [E, MAXT] normalized area CDF (padded with 1s)
     area: torch.Tensor  # [E]
-    sphere_id: torch.Tensor  # [E] i32 sphere of a sphere-area emitter, or -1
-    # whether any emitter lies on a sphere; computed when None, so that
-    # `ops/emitter.sample_emitter` skips the sphere branch without a sync
+    sphere_id: torch.Tensor  # [E] i32 sphere of a sphere-area / volume emitter, or -1
+    # volume emitters (volumelight.cpp:47-79): the shape's bbox (meshes) or
+    # ball (spheres) and its volume; pdf = dist² / volume
+    bbox_min: torch.Tensor  # [E,3]
+    bbox_extent: torch.Tensor  # [E,3]
+    volume: torch.Tensor  # [E]
+    # whether any emitter lies on a sphere, and whether any is a volume
+    # emitter; computed when None, so that `ops/emitter.sample_emitter` skips
+    # those branches without a sync
     sphere_lights: bool | None = None
+    volume_lights: bool | None = None
 
     def __post_init__(self):
         if self.sphere_lights is None:
             object.__setattr__(self, "sphere_lights",
                                bool((self.geom_kind == EmitterGeom.SPHERE).any()))
+        if self.volume_lights is None:
+            object.__setattr__(self, "volume_lights",
+                               bool((self.type == EmitterType.VOLUME).any()))
+
+
+@dataclass(frozen=True)
+class Media(_Tables):
+    """Media and their phase functions (medium.h:26-90, homogmedium.cpp,
+    heterogmedium.cpp). A heterogeneous medium points into the stack of
+    voxel grids, padded to one [D,H,W]; each grid is kept only as its corner
+    stack: row i holds the 8 cell-corner values of base voxel i in a
+    one-voxel zero-padded index space ((D+1)(H+1)(W+1) rows), so a trilinear
+    lookup reads one 32-byte row (`ops/volume_grid.py`)."""
+
+    type: torch.Tensor  # [M] i32 MediumType
+    sigma_a: torch.Tensor  # [M,3]
+    sigma_s: torch.Tensor  # [M,3]
+    phase_type: torch.Tensor  # [M] i32 PhaseType
+    phase_g: torch.Tensor  # [M] HG g / Schlick k
+    emitter: torch.Tensor  # [M] i32 volume emitter id or -1
+    vol_id: torch.Tensor  # [M] i32 index into the volume stack or -1
+    density_scale: torch.Tensor  # [M]
+    temperature_scale: torch.Tensor  # [M]
+    vol_dims: torch.Tensor  # [V,3] i32 each grid's own (D,H,W)
+    vol_bbox_min: torch.Tensor  # [V,3] world-space bbox
+    vol_bbox_max: torch.Tensor  # [V,3]
+    vol_majorant: torch.Tensor  # [V] largest unscaled density
+    vol_corners: torch.Tensor  # [V, (D+1)(H+1)(W+1), 8] f32 density corners
+    vol_tcorners: torch.Tensor  # [V, ..., 8] f32 temperature corners
+    grid: tuple  # the padded (D, H, W) of the stack
 
 
 @dataclass(frozen=True)
@@ -226,11 +278,13 @@ class SceneData(_Tables):
     bsdfs: Bsdfs
     textures: Textures
     emitters: Emitters
+    media: Media
     camera: Camera
     emitter_pick: DiscretePDF
     envmap_emitter: int  # emitter id of the envmap, or -1
     envmap: EnvmapTables
     envmap_pick: DiscretePDF  # luminance·sinθ pixel distribution ([1] for a constant map)
+    ambient_medium: int  # medium id of the scene's ambient medium, or -1
 
 
 @dataclass(frozen=True)
@@ -275,30 +329,33 @@ def _t(x, dtype=torch.float32) -> torch.Tensor:
     return torch.as_tensor(np.array(x), dtype=dtype)
 
 
-def check_supported(*, n_media, emitter_types) -> None:
-    """Raise `SceneBuildError` for what this package cannot render yet. Shared
-    by the XML builder and `scene_from_numpy`; each message names the
-    ROADMAP item that will port the feature."""
-    if n_media:
-        raise SceneBuildError("participating media: ROADMAP Queue 1 item 9")
-    if np.any(np.asarray(emitter_types) == EmitterType.VOLUME):
-        raise SceneBuildError("volume emitters: ROADMAP Queue 1 item 9")
+def corner_stack(g: np.ndarray) -> np.ndarray:
+    """[V,D,H,W] grids → [V,(D+1)(H+1)(W+1),8]: per base voxel of a
+    one-voxel zero-padded index space the 8 cell-corner values, (z, y, x)
+    corner order (build.py:863-883 of the JAX package)."""
+    V, D, H, W = g.shape
+    if V == 0:
+        return np.zeros((0, (D + 1) * (H + 1) * (W + 1), 8), np.float32)
+    P = np.zeros((V, D + 2, H + 2, W + 2), np.float32)
+    P[:, 1:D + 1, 1:H + 1, 1:W + 1] = g
+    out = np.empty((V, (D + 1) * (H + 1) * (W + 1), 8), np.float32)
+    k = 0
+    for dz in (0, 1):
+        for dy in (0, 1):
+            for dx in (0, 1):
+                out[..., k] = P[:, dz:dz + D + 1, dy:dy + H + 1, dx:dx + W + 1].reshape(V, -1)
+                k += 1
+    return out
 
 
 def scene_from_numpy(tree) -> SceneData:
     """The JAX package's `SceneData` with numpy leaves → this package's scene.
 
     Reads fields by name and imports no JAX; a caller converts the leaves
-    first (`jax.tree.map(np.asarray, scene)`). Raises `SceneBuildError` for
-    what the port cannot render yet, as `scene.build` does.
+    first (`jax.tree.map(np.asarray, scene)`).
     """
-    g, sh, b, tx, em = tree.geometry, tree.shapes, tree.bsdfs, tree.textures, tree.emitters
-    check_supported(
-        n_media=int((np.asarray(sh.interior_medium) >= 0).sum()
-                    + (np.asarray(sh.exterior_medium) >= 0).sum()
-                    + (np.asarray(tree.ambient_medium) >= 0).sum()),
-        emitter_types=em.type,
-    )
+    g, sh, b, tx, em, md = (tree.geometry, tree.shapes, tree.bsdfs, tree.textures,
+                            tree.emitters, tree.media)
     i32 = torch.int32
     has_bvh = np.asarray(g.bvh.packed).shape[0] > 0
     geometry = Geometry(
@@ -313,14 +370,24 @@ def scene_from_numpy(tree) -> SceneData:
     emitters = Emitters(
         **{k: _t(getattr(em, k)) for k in (
             "radiance", "position", "power", "direction", "cos_falloff_start",
-            "cos_falloff_end", "angular_radius", "tri_cdf", "area")},
+            "cos_falloff_end", "angular_radius", "tri_cdf", "area", "bbox_min",
+            "bbox_extent", "volume")},
         **{k: _t(getattr(em, k), i32) for k in (
             "type", "geom_kind", "tri_offset", "tri_count", "sphere_id")},
+    )
+    media = Media(
+        **{k: _t(getattr(md, k)) for k in (
+            "sigma_a", "sigma_s", "phase_g", "density_scale", "temperature_scale",
+            "vol_bbox_min", "vol_bbox_max", "vol_majorant", "vol_corners", "vol_tcorners")},
+        **{k: _t(getattr(md, k), i32) for k in (
+            "type", "phase_type", "emitter", "vol_id", "vol_dims")},
+        grid=tuple(int(x) for x in np.asarray(md.vol_density).shape[1:]),
     )
     cam = tree.camera
     return SceneData(
         geometry=geometry,
-        shapes=Shapes(**{k: _t(getattr(sh, k), i32) for k in ("bsdf", "emitter", "normal_tex")}),
+        shapes=Shapes(**{k: _t(getattr(sh, k), i32) for k in (
+            "bsdf", "emitter", "interior_medium", "exterior_medium", "normal_tex")}),
         bsdfs=Bsdfs(
             type=_t(b.type, i32), albedo_tex=_t(b.albedo_tex, i32),
             **{k: _t(getattr(b, k)) for k in (
@@ -332,6 +399,7 @@ def scene_from_numpy(tree) -> SceneData:
             **{k: _t(getattr(tx, k), i32) for k in ("type", "image_id", "image_hw")},
         ),
         emitters=emitters,
+        media=media,
         camera=Camera(**{k: _t(getattr(cam, k)) for k in (
             "to_world", "fov", "near_clip", "far_clip", "lens_radius",
             "focal_distance")}),
@@ -340,4 +408,5 @@ def scene_from_numpy(tree) -> SceneData:
         envmap_emitter=int(np.asarray(tree.envmap_emitter)),
         envmap=EnvmapTables(img=_t(tree.envmap.img), rot=_t(tree.envmap.rot)),
         envmap_pick=DiscretePDF(pmf=_t(tree.envmap_pick.pmf), cdf=_t(tree.envmap_pick.cdf)),
+        ambient_medium=int(np.asarray(tree.ambient_medium)),
     )

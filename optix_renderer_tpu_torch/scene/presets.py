@@ -1,11 +1,12 @@
 """Cornell-box presets, as XML + OBJ files.
 
 Counterpart of `optix_renderer_tpu/scene/presets.py: make_cornell_box`
-(presets.py:27-104) and `make_tessellated_cornell` (presets.py:188-289):
-the same walls, albedos, light, spheres and camera. Here each scene is
-written as an XML file with OBJ meshes and loaded through `scene.build`, so
-the presets, the CLI and the tests share one path; the `make_*` functions
-write into a temporary directory that they remove again.
+(presets.py:27-104), `make_absorbing_sphere` (presets.py:107-147) and
+`make_tessellated_cornell` (presets.py:188-289): the same walls, albedos,
+light, spheres, media and cameras. Here each scene is written as an XML
+file with OBJ meshes (and volume grids) and loaded through `scene.build`,
+so the presets, the CLI and the tests share one path; the `make_*`
+functions write into a temporary directory that they remove again.
 """
 
 from __future__ import annotations
@@ -107,6 +108,102 @@ def make_cornell_box(width: int = 800, height: int = 600, spp: int = 32,
 
     with tempfile.TemporaryDirectory(prefix="optix_torch_scene_") as tmp:
         return load_scene(cornell_box_xml(tmp, width, height, spp, integrator))
+
+
+def absorbing_sphere_xml(dirpath, sigma_a: float = 0.5, radius: float = 1.0, width: int = 64,
+                         height: int = 64, spp: int = 8,
+                         integrator: str = "path_vol_mis") -> Path:
+    """A pass-through sphere of purely absorbing homogeneous medium in a
+    constant L = 1 environment, seen head-on: the centre pixel is
+    exp(−σa·2r) (Beer–Lambert, homogmedium.cpp:61-73). Returns the XML path."""
+    path = Path(dirpath) / "absorbing_sphere.xml"
+    path.write_text(
+        f'<scene><integrator type="{integrator}"/><camera type="perspective">'
+        f'<integer name="width" value="{width}"/><integer name="height" value="{height}"/>'
+        '<float name="fov" value="30"/><transform name="toWorld">'
+        '<lookat origin="0 0 6" target="0 0 0" up="0 1 0"/></transform></camera>'
+        f'<sampler type="independent"><integer name="sampleCount" value="{spp}"/></sampler>'
+        f'<shape type="sphere"><point name="center" value="0 0 0"/>'
+        f'<float name="radius" value="{radius}"/><medium type="homog">'
+        f'<color name="sigma_a" value="{sigma_a} {sigma_a} {sigma_a}"/>'
+        '<color name="sigma_s" value="0 0 0"/></medium></shape>'
+        '<emitter type="envmap"><color name="radiance" value="1 1 1"/></emitter></scene>\n')
+    return path
+
+
+def make_absorbing_sphere(sigma_a: float = 0.5, radius: float = 1.0, width: int = 64,
+                          height: int = 64, spp: int = 8, integrator: str = "path_vol_mis"):
+    """`absorbing_sphere_xml` loaded; returns (SceneData, RenderConfig, extras)."""
+    from optix_renderer_tpu_torch.scene.build import load_scene
+
+    with tempfile.TemporaryDirectory(prefix="optix_torch_scene_") as tmp:
+        return load_scene(absorbing_sphere_xml(tmp, sigma_a, radius, width, height, spp,
+                                               integrator))
+
+
+# config H's pass-through box: the middle of the room (outward winding, as
+# tests/test_heterog.py:_write_cube_obj)
+MEDIUM_BOX = ((-0.55, 0.15, -0.55), (0.55, 1.25, 0.55))
+_CUBE_FACES = ((1, 3, 2), (1, 4, 3), (5, 6, 7), (5, 7, 8), (1, 6, 5), (1, 2, 6),
+               (2, 7, 6), (2, 3, 7), (3, 8, 7), (3, 4, 8), (4, 5, 8), (4, 1, 5))
+
+
+def medium_cornell_xml(dirpath, width: int = 800, height: int = 600, spp: int = 1,
+                       integrator: str = "path_vol_mis", kind: str = "H", res: int = 128,
+                       rfilter: str | None = None) -> Path:
+    """The Cornell room (walls and area light of `cornell_box_xml`) with
+    participating media, written into `dirpath`; returns the XML path.
+
+    kind "H": the spheres give way to a pass-through box of 12 triangles
+    filling the middle of the room (`MEDIUM_BOX`) that holds a
+    heterogeneous medium, σa 0.5, σs 4.5, isotropic, whose density is
+    `make_procedural_fog(res, "sphere")` over the box, written as an `.npz`
+    beside the XML; the same array is its temperature grid, with
+    temperatureScale 2, so the medium also glows. kind "V": the glass
+    sphere holds a homogeneous medium (σa 0.05, σs 1.0, Henyey–Greenstein
+    g 0.5) and has no BSDF, and the mirror sphere becomes a small sphere of
+    absorbing medium (σa 0.5) carrying a volume light of radiance 4.
+    """
+    from optix_renderer_tpu_torch.scene.volume_io import make_procedural_fog
+
+    dirpath = Path(dirpath)
+    parts = _header(width, height, spp, integrator, rfilter) + _box_shapes(dirpath)
+    if kind == "H":
+        lo, hi = MEDIUM_BOX
+        corners = [(x, y, z) for z in (lo[2], hi[2]) for y in (lo[1], hi[1])
+                   for x in (lo[0], hi[0])]
+        corners = [corners[i] for i in (0, 1, 3, 2, 4, 5, 7, 6)]  # the cube's vertex order
+        (dirpath / "medium_box.obj").write_text(
+            "".join(f"v {_vec(v)}\n" for v in corners)
+            + "".join(f"f {a} {b} {c}\n" for a, b, c in _CUBE_FACES))
+        fog = make_procedural_fog(res, "sphere").density
+        np.savez(dirpath / "fog.npz", density=fog, temperature=fog,
+                 bbox_min=np.asarray(lo, np.float32), bbox_max=np.asarray(hi, np.float32))
+        parts.append(
+            '<shape type="obj"><string name="filename" value="medium_box.obj"/>'
+            '<medium type="heterog" name="interior"><color name="sigma_a" value="0.5 0.5 0.5"/>'
+            '<color name="sigma_s" value="4.5 4.5 4.5"/>'
+            '<float name="temperatureScale" value="2"/><phase type="isophase"/>'
+            '<volume type="volume"><string name="filename" value="fog.npz"/></volume>'
+            "</medium></shape>")
+    elif kind == "V":
+        parts.append(
+            '<shape type="sphere"><point name="center" value="0.45 0.35 0.4"/>'
+            '<float name="radius" value="0.35"/><medium type="homog" name="interior">'
+            '<color name="sigma_a" value="0.05 0.05 0.05"/><color name="sigma_s" value="1 1 1"/>'
+            '<phase type="anisophase"><float name="g" value="0.5"/></phase></medium></shape>')
+        parts.append(
+            '<shape type="sphere"><point name="center" value="-0.45 0.35 -0.35"/>'
+            '<float name="radius" value="0.2"/><medium type="homog" name="interior">'
+            '<color name="sigma_a" value="0.5 0.5 0.5"/><color name="sigma_s" value="0 0 0"/>'
+            '<emitter type="volumelight"><color name="radiance" value="4 4 4"/></emitter>'
+            "</medium></shape>")
+    else:
+        raise ValueError(f"kind must be 'H' or 'V', got {kind!r}")
+    parts.append("</scene>")
+    path = dirpath / f"medium_cbox_{kind}.xml"
+    path.write_text("\n".join(parts) + "\n")
+    return path
 
 
 def _uv_sphere_obj(dirpath, name: str, center, radius: float, nu: int = 200, nv: int = 125) -> str:

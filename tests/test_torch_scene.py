@@ -6,7 +6,7 @@ across) must both pack the path-kernel tables of the JAX package's
 tables must hold the fields of the JAX MXU branch's `attr` / `etc` tables;
 `sample_to_camera_matrix` agrees to 1e-6; what the port cannot render yet
 raises; `render()` dispatches every scene of a matrix of surface features
-as the JAX package does (`pathk_eligible`).
+and media as the JAX package does (`pathk_eligible`).
 """
 
 import dataclasses
@@ -120,14 +120,25 @@ def test_sample_to_camera_matrix_matches_jax():
 
 
 def test_unsupported_scenes_raise(tmp_path):
-    """Media raise, naming their ROADMAP item; a sphere-area emitter, once
-    refused, now builds and renders on the CPU (through the scan path)."""
+    """What the port cannot render yet raises, naming its ROADMAP item (a
+    denoiser, item 13); a medium and a sphere-area emitter, once refused,
+    now build and render on the CPU (through the scan path), and a JAX
+    scene with a medium carries across."""
     from optix_renderer_tpu_torch.render.render import render
 
-    medium = ('<shape type="sphere"><float name="radius" value="0.3"/>'
-              '<medium type="homog" name="interior"/></shape>')
-    with pytest.raises(SceneBuildError, match="item 9"):
-        build.load_scene(room_xml(tmp_path, LIGHTS["point"], extra=medium))
+    with pytest.raises(SceneBuildError, match="item 13"):
+        build.load_scene(room_xml(tmp_path, LIGHTS["point"], extra='<denoiser type="simple"/>'))
+    medium = ('<shape type="sphere"><point name="center" value="0 1 0"/>'
+              '<float name="radius" value="0.3"/>'
+              '<medium type="homog" name="interior"><color name="sigma_s" value="1 1 1"/>'
+              '</medium></shape>')
+    scene, config, _ = build.load_scene(room_xml(tmp_path, LIGHTS["point"], extra=medium))
+    assert scene.shapes.interior_medium.tolist() == [-1, -1, 0] and scene.shapes.bsdf[2] == -1
+    assert not pathk.pathk_eligible(scene, config)
+    out = render(scene, dataclasses.replace(config, width=8, height=6, max_depth=3,
+                                            integrator="path_vol_mis"),
+                 sample_count=1, device="cpu")
+    assert np.isfinite(out["composite"]).all() and out["composite"].mean() > 0
     sphere_light = ('<shape type="sphere"><point name="center" value="0 1 0"/>'
                     '<float name="radius" value="0.3"/>'
                     '<emitter type="area"><color name="radiance" value="1 1 1"/></emitter></shape>')
@@ -137,10 +148,9 @@ def test_unsupported_scenes_raise(tmp_path):
     out = render(scene, dataclasses.replace(config, width=8, height=6, max_depth=3),
                  sample_count=1, device="cpu")
     assert np.isfinite(out["composite"]).all() and out["composite"].mean() > 0
-    # the same refusal for a JAX scene carried across
     jscene, _, _ = jpresets.make_absorbing_sphere(width=8, height=8, spp=1)
-    with pytest.raises(SceneBuildError, match="media"):
-        scene_from_numpy(jax.tree.map(np.asarray, jscene))
+    carried = scene_from_numpy(jax.tree.map(np.asarray, jscene))
+    assert carried.media.type.tolist() == [1] and carried.shapes.interior_medium.tolist() == [0]
 
 
 def test_render_refuses_what_the_kernel_does_not_cover(tmp_path):
@@ -209,6 +219,14 @@ def _dispatch_scene(tmp_path, kind):
         cfg = {"rfilter": "mitchell"}
     elif kind == "direct_mis":
         cfg = {"integrator": "direct_mis"}
+    elif kind == "medium_sphere":
+        extra = ('<shape type="sphere"><point name="center" value="0 1 0"/>'
+                 '<float name="radius" value="0.3"/><medium type="homog" name="interior">'
+                 '<color name="sigma_s" value="1 1 1"/></medium></shape>')
+    elif kind == "path_vol_mis":
+        cfg = {"integrator": "path_vol_mis"}
+    elif kind == "ambient_medium":
+        extra = '<medium type="homog"><color name="sigma_s" value="0.1 0.1 0.1"/></medium>'
     if kind == "cornell":
         from optix_renderer_tpu_torch.scene.presets import cornell_box_xml
 
@@ -217,7 +235,8 @@ def _dispatch_scene(tmp_path, kind):
 
 
 @pytest.mark.parametrize("kind", ["no_emitters", "sphere_light", "checker", "normal_map",
-                                  "image_envmap", "mitchell", "direct_mis", "cornell"])
+                                  "image_envmap", "mitchell", "direct_mis", "cornell",
+                                  "medium_sphere", "path_vol_mis", "ambient_medium"])
 def test_dispatch_matches_jax(tmp_path, kind):
     """The port's `pathk_eligible` (and the reason behind it) against the JAX
     package's on the same XML, built by each builder and carried across.
@@ -236,5 +255,6 @@ def test_dispatch_matches_jax(tmp_path, kind):
     if not want:
         word = {"sphere_light": "sphere-area", "checker": "texture", "normal_map": "normal map",
                 "image_envmap": "environment map", "mitchell": "mitchell",
-                "direct_mis": "direct_mis"}[kind]
+                "direct_mis": "direct_mis", "medium_sphere": "media",
+                "path_vol_mis": "path_vol_mis", "ambient_medium": "media"}[kind]
         assert word in reason, reason
