@@ -122,7 +122,34 @@ Drives the port's main path (`optix_renderer_tpu_torch`, no JAX) once:
    breakdown of one config H render, and config H through the CLI;
 19. renders configs H and V at 64x48, 4 spp, box filter, on the card and
    on the CPU: median relative error < 1e-3, means within 10 %, and the
-   pixels over 1e-3 counted.
+   pixels over 1e-3 counted;
+20. takes the train step (`parallel/shard.py: train_step`) at full width:
+   the Cornell box at 800x600, path_mis, depth 16, 1 spp, one 480,000-lane
+   `render_round` and one backward, against the same render at radiance x
+   0.8; prints the loss, the gradient norms, the seconds of the step, of
+   its forward and of its backward apart, the peak memory and the
+   launches (`isect_brute` 32 in the forward, none in the backward), a
+   torch.profiler breakdown of one step, and the backward of a gather
+   from an 8-row table by advanced indexing against `core/math.rows`;
+   holds AD against a central difference along a random em_radiance
+   direction (h 2e-2, rtol 2e-2), then takes 3 SGD steps on em_radiance,
+   and the loss must fall at each; at 64x48, depth 3, on the box with its
+   odd diffuse BSDF rows made microfacet, the directional derivative of
+   each of the four train_step keys on the card agrees with the CPU's to
+   1e-3;
+21. takes gradients (em_radiance, and sigma_s with voxel grids) through the
+   LBVH walk, the 300-triangle tessellated box (`nu=12, nv=7`) at 800x600,
+   path_mis, depth 3, and through the trackers, config H at 800x600,
+   path_vol_mis, depth 8: the forward launches `isect_bvh` closest and any
+   3 times each, or `isect_brute` 72, `delta_track` 8 and `ratio_track`
+   64, the backward none; and at 64x48, depth 3, their directional
+   derivatives on the card and on the CPU agree to 1e-3;
+22. renders the Cornell box with `<sampler type="adaptive">` at 800x600,
+   16 spp, 4 uniform rounds through `render_adaptive` (samples placed,
+   rounds, Mpaths/s, `isect_brute` 32 per round) and through the CLI on
+   cuda (EXR, PNG and `_variance.exr`), and at 64x48 on the card and on
+   the CPU: the same samples placed, median relative error < 1e-4, means
+   within 1e-3.
 
 Every phase prints its seconds and raises on failure. The second-to-last line is a JSON object with
 each kernel's route, source, launches, error, times and bound; the last line
@@ -1303,6 +1330,295 @@ def main() -> None:
             raise AssertionError(f"config {kind}: the card's film differs from the CPU's: {st}")
     phase(19, "configs H and V on cuda match the CPU by the median statistic")
 
+    # ---- 20. the train step at full width: Cornell, path_mis, depth 16, 1 spp
+    from optix_renderer_tpu_torch.parallel.shard import apply_params, train_step, trainable_params
+    from optix_renderer_tpu_torch.render import film as film_ops
+    from optix_renderer_tpu_torch.render.render import render_round
+    from optix_renderer_tpu_torch.scene.data import BsdfType
+
+    def reset_counts():
+        for counts in (isect.LAUNCHES, track.LAUNCHES):
+            for k in counts:
+                counts[k] = 0
+        pathk.LAUNCHES = 0
+
+    def read_counts():
+        return {**isect.LAUNCHES, **track.LAUNCHES, "pathk": pathk.LAUNCHES}
+
+    def synced(fn):
+        """(fn(), its seconds with the device synchronized on both sides)."""
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.time() - t0
+
+    def with_params(scene, em=None, sigma_s=None):
+        """The scene with emitter radiance and / or the media's sigma_s replaced."""
+        if em is not None:
+            scene = dataclasses.replace(scene, emitters=dataclasses.replace(scene.emitters,
+                                                                            radiance=em))
+        if sigma_s is not None:
+            scene = dataclasses.replace(scene, media=dataclasses.replace(scene.media,
+                                                                         sigma_s=sigma_s))
+        return scene
+
+    def directional(grads, seed):
+        """sum of grads . a seeded random direction per key (on the CPU)."""
+        r = np.random.default_rng(seed)
+        return sum(float((g.cpu() * torch.from_numpy(
+            r.standard_normal(tuple(g.shape)).astype(np.float32))).sum())
+            for _, g in sorted(grads.items()))
+
+    scene_g, cfg_g, _ = make_cornell_box(800, 600, 1, "path_mis")
+    cfg_g = dataclasses.replace(cfg_g, max_depth=16)
+    scene_g = scene_g.to(dev)
+    n_g = cfg_g.width * cfg_g.height
+    ids_g = torch.arange(n_g, device=dev)
+    em0 = scene_g.emitters.radiance
+    with torch.no_grad():  # the target: the same scene, the same samples, radiance x 0.8
+        target_g = film_ops.to_bitmap(render_round(with_params(scene_g, em=em0 * 0.8), cfg_g,
+                                                   ids_g, 0))[0]
+
+    def mse(scene):
+        return torch.mean((film_ops.to_bitmap(render_round(scene, cfg_g, ids_g, 0))[0]
+                           - target_g) ** 2)
+
+    # the step split: forward, then backward, each counted and timed (the
+    # first backward in the process also loads its kernels)
+    leaves = {k: v.detach().requires_grad_(True) for k, v in trainable_params(scene_g).items()}
+    reset_counts()
+    loss_split, fwd_s = synced(lambda: mse(apply_params(scene_g, leaves)))
+    fwd_counts = read_counts()
+    _, bwd_s = synced(lambda: torch.autograd.grad(loss_split, list(leaves.values()),
+                                                  allow_unused=True))
+    bwd_counts = read_counts()
+    # the entry point, counted and timed (its forward and backward together)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    (loss_g, grads_g), step_s = synced(lambda: train_step(scene_g, cfg_g, target_g, ids_g, 0,
+                                                          device=dev))
+    step_counts, step_peak = read_counts(), torch.cuda.max_memory_allocated(dev)
+    with torch.no_grad():
+        _, nograd_s = synced(lambda: mse(scene_g))
+    want_g = {k: 0 for k in fwd_counts}
+    want_g["isect_brute"] = 2 * cfg_g.max_depth  # a closest hit and a shadow ray per bounce
+    norms_g = {k: float(v.norm()) for k, v in grads_g.items()}
+    train_row = {"loss": float(loss_g), "grad_norms": norms_g, "step_s": step_s,
+                 "forward_s": fwd_s, "backward_s": bwd_s, "forward_no_graph_s": nograd_s,
+                 "peak_gb": step_peak / 1e9, "launches": step_counts,
+                 "forward_launches": fwd_counts, "backward_launches": {
+                     k: bwd_counts[k] - fwd_counts[k] for k in fwd_counts}}
+    print(f"  train step, Cornell 800x600 path_mis depth 16, 1 spp, on {smi}: "
+          f"{json.dumps(train_row)}", flush=True)
+    if fwd_counts != want_g or step_counts != want_g or bwd_counts != fwd_counts:
+        raise AssertionError(f"train step launches: step {step_counts}, forward {fwd_counts}, "
+                             f"after the backward {bwd_counts}; expected {want_g}")
+    if not (all(bool(torch.isfinite(g).all()) for g in grads_g.values())
+            and norms_g["em_radiance"] > 0 and bool(torch.isfinite(loss_g))):
+        raise AssertionError(f"train step: loss {float(loss_g)}, gradient norms {norms_g}")
+    loss_split = float(loss_split.detach())
+    if not abs(loss_split - float(loss_g)) <= 1e-5 * float(loss_g):
+        raise AssertionError(f"the split step's loss {loss_split} is not the step's "
+                             f"{float(loss_g)}")
+    # FD against AD along one random direction of em_radiance
+    d_em = torch.from_numpy(np.random.default_rng(20).standard_normal(tuple(em0.shape))
+                            .astype(np.float32)).to(dev)
+    h_fd = 2e-2
+    with torch.no_grad():
+        fd_g = (float(mse(with_params(scene_g, em=em0 + h_fd * d_em)))
+                - float(mse(with_params(scene_g, em=em0 - h_fd * d_em)))) / (2 * h_fd)
+    ad_g = float((grads_g["em_radiance"] * d_em).sum())
+    print(f"  em_radiance direction: AD {ad_g:.7e}, FD {fd_g:.7e} (h {h_fd}), rel "
+          f"{abs(ad_g - fd_g) / abs(fd_g):.3e}")
+    if not (abs(ad_g) > 0 and abs(ad_g - fd_g) <= 2e-2 * abs(fd_g)):
+        raise AssertionError(f"train step: AD {ad_g} against FD {fd_g}")
+    # three SGD steps on em_radiance toward the target (taken here, not by the package)
+    em, sgd_losses, g_em = em0, [float(loss_g)], grads_g["em_radiance"]
+    for step in range(3):
+        em = em - 30.0 * g_em
+        if step < 2:
+            loss_s, grads_s = train_step(with_params(scene_g, em=em), cfg_g, target_g, ids_g, 0,
+                                         device=dev)
+            sgd_losses.append(float(loss_s))
+            g_em = grads_s["em_radiance"]
+        else:
+            with torch.no_grad():
+                sgd_losses.append(float(mse(with_params(scene_g, em=em))))
+    train_row["sgd_losses"] = sgd_losses
+    print(f"  3 SGD steps on em_radiance (lr 30): losses {sgd_losses}; radiance "
+          f"{em.flatten().tolist()} (the target's {(em0 * 0.8).flatten().tolist()})")
+    if not all(b < a for a, b in zip(sgd_losses, sgd_losses[1:])):
+        raise AssertionError(f"the loss did not fall: {sgd_losses}")
+    # the card against the CPU at 64x48, depth 3: each train_step key's
+    # directional derivative, on the box with its odd diffuse BSDF rows made
+    # microfacet (ks 0.3, alpha 0.3), so that bsdf_kd and bsdf_alpha reach the
+    # loss beside tex_value and em_radiance (on the diffuse box their
+    # gradients are 0)
+    scene_s, cfg_s, _ = make_cornell_box(64, 48, 1, "path_mis")
+    cfg_s = dataclasses.replace(cfg_s, max_depth=3)
+    b_s = scene_s.bsdfs
+    odd = (torch.arange(b_s.type.shape[0]) % 2 == 1) & (b_s.type == BsdfType.DIFFUSE)
+    scene_s = dataclasses.replace(scene_s, bsdfs=dataclasses.replace(
+        b_s, type=torch.where(odd, BsdfType.MICROFACET, b_s.type).to(b_s.type.dtype),
+        ks=torch.where(odd, 0.3, b_s.ks), alpha=torch.where(odd, 0.3, b_s.alpha)))
+    target_s = torch.from_numpy(np.random.default_rng(22).uniform(0, 1, (48, 64, 3))
+                                .astype(np.float32))
+    dirs_s = {}
+    for d in (dev, torch.device("cpu")):
+        _, g_s = train_step(scene_s, cfg_s, target_s, torch.arange(64 * 48), 0, device=d)
+        dirs_s[d.type] = {k: directional({k: v}, 20) for k, v in g_s.items()}
+    rel_s = {k: abs(dirs_s["cuda"][k] - v) / abs(v) if v else float("inf")
+             for k, v in dirs_s["cpu"].items()}
+    train_row["directional_64x48_depth3"] = {**dirs_s, "rel_err": rel_s}
+    print(f"  train_step directional derivatives at 64x48, depth 3, cuda against cpu: "
+          f"{json.dumps(train_row['directional_64x48_depth3'])}")
+    if set(rel_s) != {"tex_value", "bsdf_kd", "bsdf_alpha", "em_radiance"} or not all(
+            r <= 1e-3 for r in rel_s.values()):
+        raise AssertionError(f"train_step on cuda against the cpu: {dirs_s}")
+    # why parameter tables are gathered by core/math.rows: the backward of a
+    # gather of 480,000 lanes from an 8-row table, by advanced indexing (its
+    # backward sorts the indices) and by rows (index_select; index_add_)
+    from optix_renderer_tpu_torch.core.math import rows
+
+    tbl = torch.rand((8, 3), device=dev, requires_grad=True)
+    lane_rows = torch.randint(0, 8, (n_g,), device=dev)
+    ones = torch.ones((n_g, 3), device=dev)
+    gather_ms = {name: event_ms(lambda f=f: torch.autograd.grad(f(), tbl, ones), reps=10)
+                 for name, f in (("advanced_indexing", lambda: tbl[lane_rows]),
+                                 ("rows_index_select", lambda: rows(tbl, lane_rows)))}
+    train_row["gather_backward_ms"] = gather_ms
+    print(f"  gather + backward of {n_g} lanes from an 8-row table, ms: {json.dumps(gather_ms)}")
+    prof_g = device_breakdown(lambda: train_step(scene_g, cfg_g, target_g, ids_g, 0,
+                                                 device=dev), top=8,
+                              sums=("indexing_backward", "indexFunc", "brute_kernel"))
+    train_row["profile"] = prof_g
+    print(f"  one train step under the profiler: {json.dumps(prof_g)}")
+    phase(20, f"train step at 800x600 depth 16: {step_s:.3f} s (forward {fwd_s:.3f}, backward "
+              f"{bwd_s:.3f}), peak {step_peak / 1e9:.2f} GB, {fwd_counts['isect_brute']} "
+              "isect_brute launches in the forward, none in the backward")
+
+    # ---- 21. gradients through the LBVH walk and through the trackers
+    def grad_run(scene, cfg, dev_):
+        """mean(to_bitmap(render_round)[0]^2) of one 1-spp round and its
+        gradients with respect to em_radiance and, with voxel grids, the
+        media's sigma_s, forward and backward apart: (loss, grads, forward
+        s, backward s, forward launches, backward launches, peak bytes)."""
+        scene = scene.to(dev_)
+        leaves = {"em_radiance": scene.emitters.radiance.detach().requires_grad_(True)}
+        if vg.has_volumes(scene.media):
+            leaves["sigma_s"] = scene.media.sigma_s.detach().requires_grad_(True)
+        sc = with_params(scene, em=leaves["em_radiance"], sigma_s=leaves.get("sigma_s"))
+        ids = torch.arange(cfg.width * cfg.height, device=dev_)
+        cuda = dev_.type == "cuda"
+        sync = torch.cuda.synchronize if cuda else (lambda: None)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev_)
+        reset_counts()
+        sync()
+        t0 = time.time()
+        loss = torch.mean(film_ops.to_bitmap(render_round(sc, cfg, ids, 0))[0] ** 2)
+        sync()
+        t1, c_fwd = time.time(), read_counts()
+        grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+        sync()
+        c_bwd = {k: v - c_fwd[k] for k, v in read_counts().items()}
+        return (loss.detach(), grads, t1 - t0, time.time() - t1, c_fwd, c_bwd,
+                torch.cuda.max_memory_allocated(dev_) if cuda else 0)
+
+    scene_l, cfg_l, _ = make_tessellated_cornell(800, 600, 1, "path_mis", nu=12, nv=7)
+    cfg_l = dataclasses.replace(cfg_l, max_depth=3)
+    if scene_l.geometry.tri_v0.shape[0] != 300 or scene_l.geometry.bvh is None:
+        raise AssertionError("the LBVH gradient scene is not the 300-triangle box")
+    grad_rows = {}
+    for name, scene, cfg, want in (
+            ("lbvh_300_path_mis_depth3", scene_l, cfg_l,
+             {"isect_bvh_closest": cfg_l.max_depth, "isect_bvh_any": cfg_l.max_depth}),
+            ("config_h_path_vol_mis_depth8", scene_h, cfg_h,
+             {"isect_brute": 9 * cfg_h.max_depth, "delta_track": cfg_h.max_depth,
+              "ratio_track": 8 * cfg_h.max_depth})):
+        want = {**{k: 0 for k in read_counts()}, **want}
+        loss, grads, f_s, b_s, c_f, c_b, peak = grad_run(scene, cfg, dev)
+        row_g = {"loss": float(loss), "grad_norms": {k: float(g.norm()) for k, g in grads.items()},
+                 "forward_s": f_s, "backward_s": b_s, "peak_gb": peak / 1e9,
+                 "forward_launches": c_f, "backward_launches": c_b}
+        small = dataclasses.replace(cfg, width=64, height=48, max_depth=3)
+        dirs = {d.type: directional(grad_run(scene, small, d)[1], 21)
+                for d in (dev, torch.device("cpu"))}
+        row_g["directional_64x48_depth3"] = dirs
+        row_g["directional_rel_err"] = abs(dirs["cuda"] - dirs["cpu"]) / abs(dirs["cpu"])
+        grad_rows[name] = row_g
+        print(f"  {name} 800x600, 1 spp, on {smi}: {json.dumps(row_g)}", flush=True)
+        if c_f != want or any(c_b.values()):
+            raise AssertionError(f"{name}: forward launches {c_f} (expected {want}), backward "
+                                 f"{c_b}")
+        if not all(bool(torch.isfinite(g).all()) for g in grads.values()):
+            raise AssertionError(f"{name}: a gradient is not finite")
+        if not (abs(dirs["cpu"]) > 0 and row_g["directional_rel_err"] <= 1e-3):
+            raise AssertionError(f"{name}: directional derivative on cuda {dirs['cuda']}, on the "
+                                 f"cpu {dirs['cpu']}")
+    phase(21, "gradients through isect_bvh (closest, any) and the tracking kernel at 800x600: "
+              "the forward launches each, the backward none; 64x48 directional derivatives on "
+              "cuda match the cpu")
+
+    # ---- 22. the adaptive render at full width, through render_adaptive and the CLI
+    from optix_renderer_tpu_torch.render.adaptive import render_adaptive
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        xml = cornell_box_xml(tmp, 800, 600, 16, "path_mis", sampler="adaptive")
+        scene_ad, cfg_ad, _ = load_scene(xml)
+        if not (cfg_ad.adaptive and cfg_ad.adaptive_uniform_rounds == 4) or \
+                pathk.pathk_eligible(scene_ad, cfg_ad):
+            raise AssertionError("the adaptive Cornell box did not build as an adaptive config "
+                                 "off the path kernel")
+        n_ad = cfg_ad.width * cfg_ad.height
+        render_adaptive(scene_ad, cfg_ad, sample_count=1, device=dev)  # warm-up
+        reset_counts()
+        out_ad, ad_s = synced(lambda: render_adaptive(scene_ad, cfg_ad, device=dev))
+        ad_counts = read_counts()
+        rounds = out_ad["samples_placed"] // n_ad
+        ad_row = {"samples_placed": out_ad["samples_placed"], "rounds": rounds, "s": ad_s,
+                  "mpaths_s": out_ad["samples_placed"] / ad_s / 1e6, "launches": ad_counts,
+                  "film_mean": float(out_ad["composite"].mean())}
+        print(f"  adaptive Cornell 800x600 path_mis depth {cfg_ad.max_depth}, 16 spp, 4 uniform "
+              f"rounds, on {smi}: {json.dumps(ad_row)}", flush=True)
+        want_ad = {**{k: 0 for k in ad_counts}, "isect_brute": 2 * cfg_ad.max_depth * rounds}
+        if ad_counts != want_ad or not 4 <= rounds <= 16:
+            raise AssertionError(f"adaptive render: {rounds} rounds, launches {ad_counts}, "
+                                 f"expected {want_ad}")
+        if not (np.isfinite(out_ad["composite"]).all() and out_ad["composite"].mean() > 0
+                and out_ad["variance"].shape == (600, 800)):
+            raise AssertionError("the adaptive film is not finite / positive")
+        cli_out = Path(tmp) / "adaptive"
+        subprocess.run([sys.executable, "-m", "optix_renderer_tpu_torch", "render", str(xml),
+                        "--device", "cuda", "-o", str(cli_out)], cwd=ROOT, check=True,
+                       timeout=600)
+        var_img = read_exr(str(cli_out) + "_variance.exr")
+        img = read_exr(cli_out.with_suffix(".exr"))
+        if not (cli_out.with_suffix(".png").stat().st_size > 0 and img.shape == (600, 800, 3)
+                and np.isfinite(img).all() and var_img.shape == (600, 800, 3)
+                and np.isfinite(var_img).all() and var_img.max() > 0):
+            raise AssertionError("the CLI's adaptive outputs are missing or malformed")
+    # 64x48 on the card against the CPU: the same samples placed, the films
+    # by phase 16's median statistic
+    small_ad = dataclasses.replace(cfg_ad, width=64, height=48)
+    a_ad = render_adaptive(scene_ad, small_ad, device=dev)
+    b_ad = render_adaptive(scene_ad, small_ad, device="cpu")
+    rel = np.abs(a_ad["composite"] - b_ad["composite"]) / (np.abs(b_ad["composite"]) + 1e-3)
+    st_ad = {"samples_cuda": a_ad["samples_placed"], "samples_cpu": b_ad["samples_placed"],
+             "median_rel_err": float(np.median(rel)),
+             "max_abs_err": float(np.abs(a_ad["composite"] - b_ad["composite"]).max()),
+             "mean_cuda": float(a_ad["composite"].mean()),
+             "mean_cpu": float(b_ad["composite"].mean())}
+    ad_row["small_cuda_against_cpu"] = st_ad
+    print(f"  adaptive 64x48, 16 spp, cuda against cpu: {json.dumps(st_ad)}")
+    if not (st_ad["samples_cuda"] == st_ad["samples_cpu"] and st_ad["median_rel_err"] < 1e-4
+            and abs(st_ad["mean_cuda"] - st_ad["mean_cpu"]) <= 1e-3 * abs(st_ad["mean_cpu"])):
+        raise AssertionError(f"adaptive 64x48: the card differs from the CPU: {st_ad}")
+    phase(22, f"adaptive render at 800x600: {out_ad['samples_placed']} samples in {rounds} "
+              f"rounds, {ad_row['mpaths_s']:.3f} Mpaths/s; the CLI wrote EXR, PNG and "
+              "_variance.exr; 64x48 on cuda matches the cpu")
+
     def row(name, source, replaces, launches, err, ms, plain_ms, bnd, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -1319,6 +1635,8 @@ def main() -> None:
             bvh_rows["closest_camera"]["bound"], rays=MAIN_RAYS,
             launches_config_a_direct_mis=slice_runs["config_a_direct_mis"]["launches"][
                 "isect_bvh_closest"],
+            launches_gradient_lbvh_forward=grad_rows["lbvh_300_path_mis_depth3"][
+                "forward_launches"]["isect_bvh_closest"],
             kernel="bvh_kernel<false> (child-pair walk, persistent warps fed from a ray counter)",
             camera=bvh_rows["closest_camera"], bounce=bvh_rows["closest_bounce"],
             ms_bounce=bvh_rows["closest_bounce"]["ms"],
@@ -1326,6 +1644,8 @@ def main() -> None:
         row("isect_bvh_any", ISECT_SOURCE, "optix_renderer_tpu/ops/pallas/cluster.py:454",
             launches_a["isect_bvh_any"], err_any, ms_any, plain_any,
             bvh_rows["any_shadow"]["bound"], rays=MAIN_RAYS, kernel="bvh_kernel<true>",
+            launches_gradient_lbvh_forward=grad_rows["lbvh_300_path_mis_depth3"][
+                "forward_launches"]["isect_bvh_any"],
             launches_config_a_direct_mis=slice_runs["config_a_direct_mis"]["launches"][
                 "isect_bvh_any"],
             shadow=bvh_rows["any_shadow"], ptxas=bvh_regs),
@@ -1336,6 +1656,10 @@ def main() -> None:
             shape=f"{MAIN_RAYS} rays x 12 triangles, kernel alone (torch.profiler)",
             wrapper_ms=wrapper_brute, sets=brute_rows, launches_b252=launches_b252["isect_brute"],
             launches_scan_slice={k: v["launches"]["isect_brute"] for k, v in slice_runs.items()},
+            launches_train_step=train_row["launches"]["isect_brute"],
+            launches_gradient_config_h_forward=grad_rows["config_h_path_vol_mis_depth8"][
+                "forward_launches"]["isect_brute"],
+            launches_adaptive_render=ad_row["launches"]["isect_brute"],
             ptxas=brute_regs, instructions_per_pair=brute_loops),
         row("pathk_trace_medium", KERNEL_SOURCE, REPLACES, launches_m, err_medium, medium_ms,
             medium_plain_ms, walk_bound, branch="MXU, optix_renderer_tpu/ops/pallas/pathk.py:622",
@@ -1369,7 +1693,9 @@ def main() -> None:
               kernel=f"walk_kernel<{ratio}> + advance_kernel (one thread per lane, then "
                      "pcg32 jump-ahead by the lockstep draws)",
               no_pallas_counterpart="replaces the XLA lax.while_loop", ptxas=track_regs,
-              launches_per_render={k: v["launches"][name] for k, v in media_runs.items()})
+              launches_per_render={k: v["launches"][name] for k, v in media_runs.items()},
+              launches_gradient_config_h_forward=grad_rows["config_h_path_vol_mis_depth8"][
+                  "forward_launches"][name])
           for name, line, r, ratio, shape in (
               ("delta_track", 124, delta_row, "false", "config H's 480,000 camera rays"),
               ("ratio_track", 202, ratio_row, "true", "480,000 shadow rays toward the light"))),

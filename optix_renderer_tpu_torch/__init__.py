@@ -11,9 +11,11 @@ envmaps that `ops/cuda/mega.py: mega_unsupported` lists) runs through the regene
 branch up to 64 triangles, its medium branch above); every other scene
 runs the general scan path, whose intersections go through the LBVH and
 brute-force kernels of `csrc/isect.cu`. On a CUDA device the kernels
-launch; on the CPU their plain torch versions run. The package imports
-torch and numpy, never JAX, and builds its CUDA sources with `nvcc` at
-first use.
+launch; on the CPU their plain torch versions run. Gradients of an image
+loss (`parallel/shard.py: train_step`) and adaptive sampling
+(`render/adaptive.py`) run on the scan path. The package imports torch
+and numpy, never JAX, and builds its CUDA sources with `nvcc` at first
+use.
 """
 
 __version__ = "0.2.0"

@@ -2,7 +2,9 @@
 
 Counterpart of the `render` subcommand of `optix_renderer_tpu/cli.py` (the
 headless `nori scene.xml` path, src/utils/main.cpp:81-104), with the flags
-this package covers and `--device`. There is no fallback: `--device cuda`
+this package covers and `--device`. A scene with `<sampler type="adaptive">`
+renders through `render/adaptive.py` (unless `--no-adaptive`) and also
+writes `<out>_variance.exr`. There is no fallback: `--device cuda`
 without a GPU fails.
 """
 
@@ -16,6 +18,7 @@ from pathlib import Path
 
 
 def cmd_render(args) -> int:
+    from optix_renderer_tpu_torch.render.adaptive import render_adaptive
     from optix_renderer_tpu_torch.render.render import render, resolve_device
     from optix_renderer_tpu_torch.scene.build import load_scene
     from optix_renderer_tpu_torch.utils import imageio as iio
@@ -38,8 +41,10 @@ def cmd_render(args) -> int:
         print("warning: --resume has no effect without --checkpoint")
 
     out_base = Path(args.output) if args.output else Path(args.scene).with_suffix("")
+    adaptive = config.adaptive and not args.no_adaptive
     print(f"Rendering {args.scene}: {config.width}x{config.height} @ "
-          f"{config.sample_count}spp, integrator={config.integrator}, device={device}")
+          f"{config.sample_count}spp, integrator={config.integrator}, device={device}"
+          + (" [adaptive]" if adaptive else ""))
     preview_cb = None
     if args.preview_every:
         def preview_cb(layers, spp_done):
@@ -48,17 +53,26 @@ def cmd_render(args) -> int:
                 print(f"  preview @ {spp_done}spp → {out_base}_preview.png")
 
     t0 = time.time()
-    out = render(
-        scene, config, device=device, verbose=args.verbose,
-        preview_every=args.preview_every, preview_callback=preview_cb,
-        checkpoint_path=args.checkpoint, checkpoint_every=args.checkpoint_every,
-        resume=args.resume,
-    )
+    if adaptive:
+        out = render_adaptive(scene, config, verbose=args.verbose, device=device)
+    else:
+        out = render(
+            scene, config, device=device, verbose=args.verbose,
+            preview_every=args.preview_every, preview_callback=preview_cb,
+            checkpoint_path=args.checkpoint, checkpoint_every=args.checkpoint_every,
+            resume=args.resume,
+        )
     dt = time.time() - t0
     exr_path = out_base.with_suffix(".exr")
     iio.write_exr(exr_path, out["composite"])
     iio.write_png(out_base.with_suffix(".png"), out["composite"])
-    n_paths = config.width * config.height * config.sample_count
+    if "variance" in out:
+        iio.write_exr(str(out_base) + "_variance.exr",
+                      out["variance"][..., None].repeat(3, axis=-1))
+    n_paths = out.get("samples_placed", config.width * config.height * config.sample_count)
+    if adaptive:
+        print(f"  adaptive: {n_paths} samples placed in "
+              f"{n_paths // (config.width * config.height)} rounds")
     print(f"Done in {dt:.1f}s ({n_paths / dt / 1e6:.2f} Mpaths/s) → {exr_path}")
     return 0
 
@@ -85,6 +99,8 @@ def main(argv=None) -> int:
                     help="snapshot every K samples (with --checkpoint)")
     pr.add_argument("--resume", action="store_true",
                     help="continue from --checkpoint if it exists")
+    pr.add_argument("--no-adaptive", action="store_true",
+                    help="render a <sampler type=\"adaptive\"> scene uniformly")
     pr.add_argument("-v", "--verbose", action="store_true")
     pr.set_defaults(fn=cmd_render)
     args = p.parse_args(argv)

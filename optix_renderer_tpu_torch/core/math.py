@@ -13,6 +13,15 @@ from typing import NamedTuple
 
 import torch
 
+def rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """`table[idx]` for an integer index tensor of any shape, through
+    `index_select`: the same values, but a backward that adds with
+    `index_add_` where advanced indexing's sorts the indices, which is ~40x
+    slower on the card when every lane of a wavefront reads one of a few
+    rows (a parameter table: chip_smoke.py phase 20, PERF.md)."""
+    return torch.index_select(table, 0, idx.reshape(-1)).reshape(*idx.shape, *table.shape[1:])
+
+
 # Reference `include/nori/common.h:56`
 EPSILON = 1e-4
 PI = 3.14159265358979323846

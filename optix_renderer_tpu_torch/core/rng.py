@@ -1,4 +1,4 @@
-"""pcg32 and tea on torch tensors, bit-exact with `optix_renderer_tpu/core/rng.py`.
+"""pcg32, tea and the LCG on torch tensors, bit-exact with `optix_renderer_tpu/core/rng.py`.
 
 Every 32-bit word is carried in an int64 tensor holding a value in
 [0, 2^32): torch's uint32 arithmetic is incomplete on the CPU, and int64
@@ -154,3 +154,16 @@ def tea(val0, val1, rounds: int = 4) -> torch.Tensor:
         v1 = (v1 + ((((v0 << 4) & M32) + 0xAD90777D)
                     ^ ((v0 + s0) & M32) ^ ((v0 >> 5) + 0x7E95761E))) & M32
     return v0
+
+
+def lcg_step(state) -> torch.Tensor:
+    """LCG of cuda/sutil/random.h:50-56: state·1664525 + 1013904223 mod 2^32
+    (the product stays below 2^53, so int64 holds it exactly)."""
+    return (u32(state) * 1664525 + 1013904223) & M32
+
+
+def lcg_next_float(state) -> tuple[torch.Tensor, torch.Tensor]:
+    """`rnd(seed)` (cuda/sutil/random.h:64-67): the stepped state and its low
+    24 bits / 2^24 as float32, exactly."""
+    state = lcg_step(state)
+    return state, (state & 0x00FFFFFF).to(torch.float32) / float(1 << 24)

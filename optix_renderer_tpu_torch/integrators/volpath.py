@@ -25,6 +25,7 @@ from optix_renderer_tpu_torch.core.math import (
     frame_to_world,
     make_frame,
     normalize,
+    rows,
 )
 from optix_renderer_tpu_torch.integrators import common
 from optix_renderer_tpu_torch.ops import bsdf as bsdf_ops
@@ -123,7 +124,8 @@ def li_vol(scene: SceneData, config: RenderConfig, ray: Ray, sampler, use_mis: b
         med_em = torch.where(med >= 0, media.emitter[torch.clamp(med, min=0).long()], -1)
         has_med_em = is_medium & (med_em >= 0)
         le_const = torch.where(has_med_em[..., None],
-                               scene.emitters.radiance[torch.clamp(med_em, min=0).long()], 0.0)
+                               rows(scene.emitters.radiance, torch.clamp(med_em, min=0).long()),
+                               0.0)
         if use_mis:
             le_const = torch.where(pdf_discrete[..., None], le_const, 0.0)
         le_temp = medium_ops.event_emission(media, med, p)

@@ -24,6 +24,7 @@ from optix_renderer_tpu_torch.core.math import (
     dot,
     fresnel_dielectric,
     reflect_local,
+    rows,
     safe_normalize,
     safe_sqrt,
 )
@@ -104,7 +105,7 @@ def eval_bsdf(bsdfs: Bsdfs, textures: Textures, bsdf_id, wi, wo, uv) -> torch.Te
     albedo = eval_texture(textures, bsdfs.albedo_tex[bid], uv)
     diff_ok = (_cos(wi) > 0.0) & (_cos(wo) > 0.0)
     f_diffuse = torch.where(diff_ok[..., None], albedo * INV_PI, 0.0)
-    f_micro = _microfacet_eval(bsdfs.kd[bid], bsdfs.ks[bid], bsdfs.alpha[bid],
+    f_micro = _microfacet_eval(rows(bsdfs.kd, bid), bsdfs.ks[bid], rows(bsdfs.alpha, bid),
                                bsdfs.ext_ior[bid], bsdfs.int_ior[bid], wi, wo)
     f_disney = disney.disney_eval(bsdfs.disney[bid], albedo, wi, wo)
     return _sel(btype == BsdfType.DIFFUSE, f_diffuse,
@@ -117,7 +118,7 @@ def pdf_bsdf(bsdfs: Bsdfs, textures: Textures, bsdf_id, wi, wo, uv) -> torch.Ten
     bid, btype = _lookup(bsdfs, bsdf_id)
     diff_ok = (_cos(wi) > 0.0) & (_cos(wo) > 0.0)
     p_diffuse = torch.where(diff_ok, INV_PI * _cos(wo), 0.0)
-    p_micro = _microfacet_pdf(bsdfs.ks[bid], bsdfs.alpha[bid], wi, wo)
+    p_micro = _microfacet_pdf(bsdfs.ks[bid], rows(bsdfs.alpha, bid), wi, wo)
     p_disney = disney.disney_pdf(bsdfs.disney[bid], wi, wo)
     return torch.where(btype == BsdfType.DIFFUSE, p_diffuse,
                        torch.where(btype == BsdfType.MICROFACET, p_micro,
@@ -166,7 +167,7 @@ def sample_bsdf(bsdfs: Bsdfs, textures: Textures, bsdf_id, wi, uv, u2) -> BsdfSa
 
     # microfacet (microfacet.cpp:123-160)
     ks = bsdfs.ks[bid]
-    alpha = bsdfs.alpha[bid]
+    alpha = rows(bsdfs.alpha, bid)
     spec_event = u2[..., 1] < ks
     u_spec = torch.stack([u2[..., 0], u2[..., 1] / torch.clamp(ks, min=1e-8)], dim=-1)
     u_diff = torch.stack([u2[..., 0], (u2[..., 1] - ks) / torch.clamp(1.0 - ks, min=1e-8)],
@@ -175,7 +176,7 @@ def sample_bsdf(bsdfs: Bsdfs, textures: Textures, bsdf_id, wi, uv, u2) -> BsdfSa
     wo_spec = 2.0 * dot(wi, wh)[..., None] * wh - wi
     wo_mf = torch.where(spec_event[..., None], wo_spec,
                         warp.square_to_cosine_hemisphere(u_diff))
-    f_mf = _microfacet_eval(bsdfs.kd[bid], ks, alpha, ext_ior, int_ior, wi, wo_mf)
+    f_mf = _microfacet_eval(rows(bsdfs.kd, bid), ks, alpha, ext_ior, int_ior, wi, wo_mf)
     p_mf = _microfacet_pdf(ks, alpha, wi, wo_mf)
     w_mf = f_mf * (_cos(wo_mf) / torch.clamp(p_mf, min=1e-12))[..., None]
     w_mf = torch.where(((_cos(wo_mf) > 0.0) & (cos_i >= 0.0) & (p_mf > 1e-12))[..., None],

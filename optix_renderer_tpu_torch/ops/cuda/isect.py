@@ -16,7 +16,9 @@ in `csrc/isect.cu` take their place:
   triangle; plain version `mt_sweep_ref` below.
 
 Both take o, d [N,3] and mint, cutoff [N] float32 and return (id [N] int32,
-−1 on a miss; t, u, v [N] float32; t = cutoff on a miss). A CPU tensor runs
+−1 on a miss; t, u, v [N] float32; t = cutoff on a miss). Both refuse
+tensors that require grad (`refuse_graph`): the caller detaches them and
+replays the winner (`ops/intersect.py`). A CPU tensor runs
 the plain version; a CUDA tensor launches the kernel or raises. Each wrapper
 adds one to `LAUNCHES[name]` where it launches its kernel, and nowhere else.
 """
@@ -91,6 +93,17 @@ def mt_any_ref(o, d, mint, cutoff, v0, e1, e2):
     return occl
 
 
+def refuse_graph(name: str, *tensors) -> None:
+    """Raise where a tensor that requires grad reaches a kernel wrapper: the
+    kernels and the plain versions pick discrete winners (the plain ones by
+    writing into their outputs in place), so their callers detach the
+    inputs and replay the winner live (`ops/intersect.py`,
+    `ops/volume_grid.py`)."""
+    if any(t is not None and t.requires_grad for t in tensors):
+        raise ValueError(f"{name} takes detached tensors: detach the inputs and replay the "
+                         "result with autograd")
+
+
 def _check_rays(o, d, mint, cutoff):
     n = o.shape[0]
     for name, x, shape in (("o", o, (n, 3)), ("d", d, (n, 3)), ("mint", mint, (n,)),
@@ -138,6 +151,7 @@ def isect_bvh(bvh, o, d, mint, cutoff, any_hit: bool = False, with_visits: bool 
         raise ValueError(f"the LBVH has {bvh.depth} levels, deeper than the pair walk's stack "
                          f"of {STACK_DEPTH} entries")
     pairs, leaf = bvh.pairs, bvh.leaf
+    refuse_graph("isect_bvh", pairs, leaf, o, d, mint, cutoff)
     if o.device.type == "cpu":
         return traverse_pairs_ref(pairs, leaf, o, d, mint, cutoff, any_hit, with_visits)
     if o.device.type != "cuda":
@@ -193,6 +207,7 @@ def isect_brute(tri, o, d, mint, cutoff):
     checked on either device; a CPU tensor then runs `mt_sweep_ref`."""
     if o.device.type not in ("cpu", "cuda"):
         raise ValueError(f"isect_brute runs on cpu or cuda tensors, got {o.device}")
+    refuse_graph("isect_brute", tri, o, d, mint, cutoff)
     _check_rays(o, d, mint, cutoff)
     t_cnt = tri.shape[0] if tri.dim() == 2 else -1
     if not 0 < t_cnt < 2**31 // 9:

@@ -170,7 +170,7 @@ def mega_unsupported(scene, config) -> str | None:
     if scene.ambient_medium >= 0:
         return "an ambient medium: media take the scan path"
     if config.adaptive:
-        return "adaptive sampling: ROADMAP Queue 1 item 11"
+        return "adaptive configs take the scan path, as in the JAX render()"
     if np.any(npy(scene.shapes.normal_tex) >= 0):
         return "normal maps take the scan path"
     bt = npy(scene.bsdfs.type)

@@ -19,7 +19,7 @@ import torch
 
 from optix_renderer_tpu_torch.core.rng import Pcg32State
 from optix_renderer_tpu_torch.ops.cuda import _build
-from optix_renderer_tpu_torch.ops.cuda.isect import _ptr
+from optix_renderer_tpu_torch.ops.cuda.isect import _ptr, refuse_graph
 
 # kernel launches by the wrapper (each one walk and one advance)
 LAUNCHES = {"delta_track": 0, "ratio_track": 0}
@@ -45,6 +45,8 @@ def track(ratio: bool, media, med_id, state: Pcg32State, ro, rd, t_max):
     n = ro.shape[0]
     if not 0 < n < 2**31:
         raise ValueError(f"the tracking kernel takes 1 to 2^31 - 1 lanes, got {n}")
+    refuse_graph("the tracking kernel", ro, rd, t_max,
+                 *(x for x in vars(media).values() if isinstance(x, torch.Tensor)))
     ro, rd, t_max, med_id = (x.contiguous() for x in (ro, rd, t_max, med_id))
     state = Pcg32State(*(x.contiguous() for x in state))
     for name, x, shape in (("ro", ro, (n, 3)), ("rd", rd, (n, 3)), ("t_max", t_max, (n,))):

@@ -24,6 +24,7 @@ from optix_renderer_tpu_torch.core.math import (
     frame_to_world,
     make_frame,
     normalize,
+    rows,
     squared_norm,
 )
 from optix_renderer_tpu_torch.ops import envmap as envmap_ops
@@ -109,7 +110,7 @@ def _sample_volume(scene: SceneData, eid, ref, u3):
     dist = torch.sqrt(dist2)
     pdf = dist2 / torch.clamp(em.volume[eid], min=1e-20)
     return (to_v / dist[..., None], p, pdf,
-            em.radiance[eid] / torch.clamp(pdf, min=1e-12)[..., None], dist)
+            rows(em.radiance, eid) / torch.clamp(pdf, min=1e-12)[..., None], dist)
 
 
 def sample_emitter(scene: SceneData, em_id, ref, u3) -> EmitterSample:
@@ -121,7 +122,7 @@ def sample_emitter(scene: SceneData, em_id, ref, u3) -> EmitterSample:
     eid = torch.clamp(em_id, min=0).long()
     etype = em.type[eid]
     u2 = u3[..., :2]
-    radiance = em.radiance[eid]
+    radiance = rows(em.radiance, eid)
 
     # area (arealight.cpp:75-101)
     p_surf, n_surf, inv_area = _sample_shape_surface(scene, eid, u2)
@@ -201,7 +202,7 @@ def eval_hit_emitter(scene: SceneData, em_id, wi, n) -> torch.Tensor:
     eid = torch.clamp(em_id, min=0).long()
     front = dot(n, -wi) >= 0.0
     val = torch.where(((em.type[eid] == EmitterType.AREA) & front)[..., None],
-                      em.radiance[eid], 0.0)
+                      rows(em.radiance, eid), 0.0)
     return torch.where(em_id[..., None] >= 0, val, 0.0)
 
 

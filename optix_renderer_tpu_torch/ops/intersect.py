@@ -6,9 +6,10 @@ Counterpart of `optix_renderer_tpu/ops/intersect.py` (`intersect`,
 is: fewer than `MIN_TRIS_FOR_BVH` triangles go to the brute-force sweep
 (`ops/cuda/isect.py: isect_brute`), the rest to the LBVH walk (`isect_bvh`).
 On CUDA tensors those launch the kernels of `csrc/isect.cu`; on the CPU
-their plain versions run. The kernels only pick the winning triangle (the
-JAX detach-and-replay contract); (t, u, v) are recomputed from the live
-triangle arrays by `ops/bvh.py: replay_tri`. Spheres use the stable
+their plain versions run. The kernels only pick the winning triangle, on
+detached inputs (the JAX detach-and-replay contract); (t, u, v) are
+recomputed from the live rays and triangle arrays by `ops/bvh.py:
+replay_tri`, through which autograd flows. Spheres use the stable
 quadratic (sphere.cpp:67-124); more than 64 of them need the sphere LBVH.
 """
 
@@ -78,15 +79,21 @@ def _ray_spheres(o, d, center, radius):
 def _triangle_winner(geom: Geometry, ray: Ray, cutoff, any_hit: bool):
     """Winning triangle id [N] (−1 on a miss) from the kernel of this
     scene's size. The brute-force sweep always finds the closest hit, which
-    is also a valid any-hit answer, as in the JAX package."""
+    is also a valid any-hit answer, as in the JAX package.
+
+    The pick is a discrete decision and runs on detached inputs (the JAX
+    package's `stop_gradient` before its kernels): the kernels take raw
+    pointers, and the plain versions write into their outputs in place,
+    which autograd must not follow. `intersect` replays the winner live."""
+    o, d, mint, cutoff = (x.detach() for x in (ray.o, ray.d, ray.mint, cutoff))
     n_tris = geom.tri_v0.shape[0]
     if n_tris < MIN_TRIS_FOR_BVH:
-        ids, *_ = isect.isect_brute(geom.tri_table, ray.o, ray.d, ray.mint, cutoff)
+        ids, *_ = isect.isect_brute(geom.tri_table.detach(), o, d, mint, cutoff)
         return ids
     if geom.bvh is None:
         raise ValueError(f"{n_tris} triangles need the LBVH tables (scene.data.Bvh); "
                          "build the scene with scene.build or scene_from_numpy")
-    ids, *_ = isect.isect_bvh(geom.bvh, ray.o, ray.d, ray.mint, cutoff, any_hit=any_hit)
+    ids, *_ = isect.isect_bvh(geom.bvh.detach(), o, d, mint, cutoff, any_hit=any_hit)
     return ids
 
 

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from optix_renderer_tpu_torch.core import warp
-from optix_renderer_tpu_torch.core.math import INV_FOURPI
+from optix_renderer_tpu_torch.core.math import INV_FOURPI, rows
 from optix_renderer_tpu_torch.ops import volume_grid as vg
 from optix_renderer_tpu_torch.render import sampler as smp
 from optix_renderer_tpu_torch.scene.data import MediumType, PhaseType
@@ -32,7 +32,7 @@ def mu_t(media, med_id):
     """Extinction μt = σa + σs per lane [N,3]; 0 for vacuum and id < 0."""
     mid = _mid(med_id)
     real = (med_id >= 0) & (media.type[mid] != MediumType.VACUUM)
-    return torch.where(real[..., None], media.sigma_a[mid] + media.sigma_s[mid], 0.0)
+    return torch.where(real[..., None], rows(media.sigma_a, mid) + rows(media.sigma_s, mid), 0.0)
 
 
 def sample_free_path(media, med_id, u_channel, u_dist):
@@ -64,7 +64,7 @@ def free_path_weights(media, med_id, t_medium, t_surface):
     weight 1."""
     mid = _mid(med_id)
     mt = mu_t(media, med_id)
-    sigma_s = torch.where((med_id >= 0)[..., None], media.sigma_s[mid], 0.0)
+    sigma_s = torch.where((med_id >= 0)[..., None], rows(media.sigma_s, mid), 0.0)
     tr_m, pdf_m = _event_weights(mt, t_medium)
     w_medium = sigma_s * tr_m / torch.clamp(pdf_m, min=1e-20)[..., None]
     tr_s = torch.exp(-mt * torch.clamp(t_surface, max=1e30)[..., None])
@@ -100,7 +100,8 @@ def sample_interaction(media, med_id, s, ro, rd, t_surface):
     use the analytic estimator; with voxel grids in the scene, delta
     tracking runs over the whole wavefront and heterogeneous lanes take its
     event, with w_medium = σs/max_c σt, w_surface = 1 and the emission
-    weight 1/(ρ(x)·max_c σt) (the null-collision factors cancel).
+    weight 1/(ρ(x)·max_c σt) (the null-collision factors cancel), each
+    times the tracker's unit score weight.
     w_emission is the event weight of an emissive field, Tr/pdf_t."""
     s, u_ch = smp.next_1d(s)
     s, u_d = smp.next_1d(s)
@@ -113,16 +114,20 @@ def sample_interaction(media, med_id, s, ro, rd, t_surface):
 
     mid = _mid(med_id)
     is_het = _is_het(media, med_id)
-    s, t_het, _ = vg.delta_track(media, med_id, s, ro, rd, t_surface)
-    st_max = (media.sigma_a[mid] + media.sigma_s[mid]).amax(dim=-1)
-    w_m_het = media.sigma_s[mid] / torch.clamp(st_max, min=1e-20)[..., None]
+    s, t_het, w_score = vg.delta_track(media, med_id, s, ro, rd, t_surface)
+    st_max = (rows(media.sigma_a, mid) + rows(media.sigma_s, mid)).amax(dim=-1)
+    w_m_het = rows(media.sigma_s, mid) / torch.clamp(st_max, min=1e-20)[..., None]
     t_het_f = torch.where(torch.isfinite(t_het), t_het, 0.0)
     rho = vg.density_at(media, med_id, ro + rd * t_het_f[..., None])
     w_e_het = (1.0 / torch.clamp(rho * st_max, min=1e-12))[..., None].expand(-1, 3)
+    # differential delta tracking: the unit score weight scales every
+    # outcome of the heterogeneous free-flight decision (medium.py:173-178
+    # of the JAX package)
+    w_score = w_score[..., None]
     h = is_het[..., None]
     return (s, torch.where(is_het, t_het < t_surface, is_med_h),
-            torch.where(is_het, t_het, t_med_h), torch.where(h, w_m_het, w_m_h),
-            torch.where(h, 1.0, w_s_h), torch.where(h, w_e_het, w_e_h))
+            torch.where(is_het, t_het, t_med_h), torch.where(h, w_m_het * w_score, w_m_h),
+            torch.where(h, w_score.expand(-1, 3), w_s_h), torch.where(h, w_e_het * w_score, w_e_h))
 
 
 def color_from_temperature(v, scale):
@@ -143,7 +148,7 @@ def event_emission(media, med_id, p):
     mid = _mid(med_id)
     scale = media.temperature_scale[mid]
     on = _is_het(media, med_id) & (scale > 0.0)
-    eps = (media.sigma_a[mid] * vg.density_at(media, med_id, p)[..., None]
+    eps = (rows(media.sigma_a, mid) * vg.density_at(media, med_id, p)[..., None]
            * color_from_temperature(vg.temperature_at(media, med_id, p), scale))
     return torch.where(on[..., None], eps, 0.0)
 
@@ -155,5 +160,5 @@ def transmittance_est(media, med_id, s, o, d, dist):
     tr = transmittance(media, med_id, dist)
     if not vg.has_volumes(media):
         return s, tr
-    s, tr_het, _ = vg.ratio_track(media, med_id, s, o, d, dist)
+    s, tr_het = vg.ratio_track(media, med_id, s, o, d, dist)
     return s, torch.where(_is_het(media, med_id)[..., None], tr_het, tr)

@@ -13,12 +13,13 @@ from __future__ import annotations
 
 import torch
 
+from optix_renderer_tpu_torch.core.math import rows
 from optix_renderer_tpu_torch.scene.data import Textures, TextureType
 
 
 def eval_texture(tex: Textures, tex_id: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     tid = torch.clamp(tex_id, min=0).long()
-    out = v1 = tex.value[tid]
+    out = v1 = rows(tex.value, tid)
     if tex.kinds != (TextureType.CONST,):
         ttype = tex.type[tid]
         scale = tex.scale_uv[tid]

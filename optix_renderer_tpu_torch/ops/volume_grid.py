@@ -17,10 +17,16 @@ iteration count. `track_design_ref` is the kernel's decomposition in torch
 (each lane walked to its end on its own draws, then every state moved on
 by jump-ahead), held bit-equal to the lockstep versions by the CPU tests.
 
-The JAX trackers also return a unit-valued score factor that carries the
-free-flight pdf's gradient (differential tracking); its value is exactly 1,
-and gradients are not ported, so the port returns K, the tentative
-collisions of each lane, from which that factor can be attached later.
+Gradients (differential tracking, as in the JAX package): the walk is a
+discrete decision and runs on detached inputs, so the kernel never sees a
+graph. The whole dependence of its sampling density on c = max_c(σt_c)·
+densityScale is p ∝ M^K·e^(−M·Δ), M = c·ρ̂max the majorant, K the lane's
+tentative collisions and Δ the span it walked, whose score is ∂c log p =
+K/c − ρ̂max·Δ. So `delta_track` returns a unit weight w_score =
+exp((c − sg(c))·score), 1 in value, and `ratio_track` multiplies T by the
+same factor over its clipped segment; both are built in torch from the K
+the kernel and the plain loops return, with c taken live and the bbox
+clip recomputed, and carry the gradient to σa, σs and densityScale.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from optix_renderer_tpu_torch.core import rng
+from optix_renderer_tpu_torch.core.math import rows
 from optix_renderer_tpu_torch.scene.data import MediumType
 
 MAX_TRACK_STEPS = 2048
@@ -43,7 +50,7 @@ def density_at(media, med_id, p):
     (NvdbVolume::getDensity, trilinear where the reference is triquadratic,
     as in the JAX package)."""
     mid = torch.clamp(med_id, min=0).long()
-    return media.density_scale[mid] * _trilinear_at(media, med_id, p, media.vol_corners)
+    return rows(media.density_scale, mid) * _trilinear_at(media, med_id, p, media.vol_corners)
 
 
 def temperature_at(media, med_id, p):
@@ -99,9 +106,9 @@ def _majorant(media, med_id):
     """M = max_c(σt_c)·max(densityScale·maxDensity, 1e-3), the reference's
     floor (heterogmedium.cpp:81)."""
     mid = torch.clamp(med_id, min=0).long()
-    st_max = (media.sigma_a[mid] + media.sigma_s[mid]).amax(dim=-1)
+    st_max = (rows(media.sigma_a, mid) + rows(media.sigma_s, mid)).amax(dim=-1)
     vid = torch.clamp(media.vol_id[mid], min=0).long()
-    return st_max * torch.clamp(media.density_scale[mid] * media.vol_majorant[vid], min=1e-3)
+    return st_max * torch.clamp(rows(media.density_scale, mid) * media.vol_majorant[vid], min=1e-3)
 
 
 def _setup(media, med_id, o, d, t_max):
@@ -113,7 +120,7 @@ def _setup(media, med_id, o, d, t_max):
     t0, t1 = _bbox_clip(o, d, media.vol_bbox_min[vid], media.vol_bbox_max[vid],
                         torch.zeros_like(t_max), t_max)
     M = _majorant(media, med_id)
-    st_max = (media.sigma_a[mid] + media.sigma_s[mid]).amax(dim=-1)
+    st_max = (rows(media.sigma_a, mid) + rows(media.sigma_s, mid)).amax(dim=-1)
     return t0, t1, M, st_max, is_het & (t0 <= t1) & (M > 1e-12)
 
 
@@ -181,23 +188,51 @@ def track_design_ref(media, med_id, s, o, d, t_max, ratio: bool):
     return s._replace(state=state), out, k, steps
 
 
+def _score_factor(media, med_id, M, active, k, span):
+    """exp((c − sg(c))·score) with c = max_c(σt_c)·densityScale taken live
+    and score = K/sg(c) − ρ̂max·span on the lanes that entered the grid, 0
+    elsewhere (volume_grid.py:190-198, 238-247 of the JAX package): exactly
+    1 in value; its derivative is the free-flight pdf's score."""
+    mid = torch.clamp(med_id, min=0).long()
+    st_max = (rows(media.sigma_a, mid) + rows(media.sigma_s, mid)).amax(dim=-1)
+    scale = rows(media.density_scale, mid)
+    c = st_max * scale
+    c_det = c.detach()
+    rho_max = M / torch.clamp(st_max.detach() * scale.detach(), min=1e-20)
+    score = k.to(torch.float32) / torch.clamp(c_det, min=1e-20) - rho_max * span
+    score = torch.where(active, score, 0.0)
+    return torch.exp((c - c_det) * score)
+
+
 def delta_track(media, med_id, s, ro, rd, t_max):
     """Woodcock (delta) tracking to the next real collision → (sampler,
-    t_event [N], K [N]): the kernel on CUDA tensors, `delta_track_ref` on
-    CPU tensors."""
+    t_event [N], w_score [N]): the walk in the kernel on CUDA tensors, in
+    `delta_track_ref` on CPU tensors, on detached inputs; w_score is 1 in
+    value and carries the score of the free-flight pdf (the span runs to the
+    event, or to the bbox exit on an escape)."""
+    live = media
+    media, ro, rd, t_max = media.detach(), ro.detach(), rd.detach(), t_max.detach()
     if ro.device.type == "cpu":
-        return delta_track_ref(media, med_id, s, ro, rd, t_max)
-    from optix_renderer_tpu_torch.ops.cuda import track
+        s, t_event, k = delta_track_ref(media, med_id, s, ro, rd, t_max)
+    else:
+        from optix_renderer_tpu_torch.ops.cuda import track
 
-    t_event, k, state, _ = track.track(False, media, med_id, s.state, ro, rd, t_max)
-    return s._replace(state=state), t_event, k
+        t_event, k, state, _ = track.track(False, media, med_id, s.state, ro, rd, t_max)
+        s = s._replace(state=state)
+    t0, t1, M, _, active = _setup(media, med_id, ro, rd, t_max)
+    span = torch.where(torch.isfinite(t_event), t_event, t1) - t0
+    return s, t_event, _score_factor(live, med_id, M, active, k, span)
 
 
 def ratio_track(media, med_id, s, o, d, dist):
-    """Ratio-tracking transmittance over [0, dist] → (sampler, T [N,3], K [N]),
+    """Ratio-tracking transmittance over [0, dist] → (sampler, T [N,3]),
     T = Π(1 − μ(x_k)/M) over majorant-sampled points, achromatic and 1 on
-    lanes that are not heterogeneous: the kernel on CUDA tensors,
-    `ratio_track_ref` on CPU tensors."""
+    lanes that are not heterogeneous: the walk in the kernel on CUDA
+    tensors, in `ratio_track_ref` on CPU tensors, on detached inputs; T is
+    multiplied by the score factor over the clipped segment t1 − t0, which
+    leaves its value as it is."""
+    live = media
+    media, o, d, dist = media.detach(), o.detach(), d.detach(), dist.detach()
     if o.device.type == "cpu":
         s, tr, k = ratio_track_ref(media, med_id, s, o, d, dist)
     else:
@@ -205,4 +240,6 @@ def ratio_track(media, med_id, s, o, d, dist):
 
         tr, k, state, _ = track.track(True, media, med_id, s.state, o, d, dist)
         s = s._replace(state=state)
-    return s, tr[..., None].expand(-1, 3), k
+    t0, t1, M, _, active = _setup(media, med_id, o, d, dist)
+    tr = tr * _score_factor(live, med_id, M, active, k, torch.clamp(t1 - t0, min=0.0))
+    return s, tr[..., None].expand(-1, 3)

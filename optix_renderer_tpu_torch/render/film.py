@@ -3,8 +3,10 @@
 Counterpart of `optix_renderer_tpu/render/film.py` (reference ImageBlock +
 ReconstructionFilter, block.h:49-129, rfilter.cpp:28-210): each sample at a
 continuous position adds into its filter-support neighbourhood; channel 3
-accumulates the filter weight. `.at[].add` becomes `index_put_(...,
-accumulate=True)`, which on a GPU adds colliding samples in an order that
+accumulates the filter weight; `to_bitmap` divides it out. `.at[].add`
+becomes `index_put_(..., accumulate=True)` (into `render()`'s accumulator
+in `splat_`, into a fresh zero film in `splat`, which autograd follows),
+which on a GPU adds colliding samples in an order that
 varies from run to run, so a film there differs from run to run in its last
 bits.
 """
@@ -94,3 +96,20 @@ def splat_(img: torch.Tensor, rfilter: str, pos: torch.Tensor, layers: torch.Ten
             flat.index_put_((torch.arange(k, device=img.device)[:, None], idx[None, :]), vals,
                             accumulate=True)
 
+
+def splat(width: int, height: int, rfilter: str, pos: torch.Tensor,
+          layers: torch.Tensor) -> torch.Tensor:
+    """`splat_` into a fresh zero film → [K,H,W,4] (the JAX `film.splat`).
+    Autograd follows the accumulating `index_put_` back to `layers` (and,
+    through the filter weights, `pos`): its backward gathers the film's
+    gradient at the indices and saves no copy of the film."""
+    img = torch.zeros((layers.shape[0], height, width, 4), dtype=torch.float32,
+                      device=layers.device)
+    splat_(img, rfilter, pos, layers)
+    return img
+
+
+def to_bitmap(img: torch.Tensor) -> torch.Tensor:
+    """[..,H,W,4] weighted → [..,H,W,3] normalized (block.cpp:76-91)."""
+    w = img[..., 3:4]
+    return torch.where(w > 1e-9, img[..., :3] / torch.clamp(w, min=1e-9), 0.0)

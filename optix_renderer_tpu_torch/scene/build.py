@@ -415,8 +415,6 @@ class _Builder:
         if root.child("denoiser") is not None:
             raise SceneBuildError("denoisers: ROADMAP Queue 1 item 13")
         sampler = root.child("sampler")
-        if sampler is not None and sampler.type == "adaptive":
-            raise SceneBuildError("adaptive sampling: ROADMAP Queue 1 item 11")
 
         for sh in root.children_of("shape"):
             self.build_shape(sh)
@@ -604,6 +602,8 @@ class _Builder:
             iprops=iprops,
             rfilter=rfilter,
             sampler=sampler.type if sampler is not None else "independent",
+            # as the JAX builder: `adaptive_uniform_rounds` keeps its default
+            adaptive=sampler is not None and sampler.type == "adaptive",
             n_tris=len(tri_v0),
             n_spheres=len(self.spheres),
             n_emitters=n_real_emitters,

@@ -73,15 +73,23 @@ class SceneBuildError(Exception):
 
 
 class _Tables:
-    """`.to(device)` over every tensor field, recursing into nested tables."""
+    """`.to(device)` and `.detach()` over every tensor field, recursing into
+    nested tables; both are differentiable as `Tensor.to` / cut the graph as
+    `Tensor.detach` do."""
 
-    def to(self, device):
-        def move(v):
-            return v.to(device) if isinstance(v, (torch.Tensor, _Tables)) else v
+    def _map(self, fn):
+        def each(v):
+            return fn(v) if isinstance(v, (torch.Tensor, _Tables)) else v
 
         return dataclasses.replace(
-            self, **{f.name: move(getattr(self, f.name)) for f in dataclasses.fields(self)}
+            self, **{f.name: each(getattr(self, f.name)) for f in dataclasses.fields(self)}
         )
+
+    def to(self, device):
+        return self._map(lambda v: v.to(device))
+
+    def detach(self):
+        return self._map(lambda v: v.detach())
 
 
 @dataclass(frozen=True)
@@ -410,3 +418,16 @@ def scene_from_numpy(tree) -> SceneData:
         envmap_pick=DiscretePDF(pmf=_t(tree.envmap_pick.pmf), cdf=_t(tree.envmap_pick.cdf)),
         ambient_medium=int(np.asarray(tree.ambient_medium)),
     )
+
+
+def params_from_numpy(params) -> dict:
+    """The JAX `trainable_params` dict with numpy leaves (`jax.tree.map(
+    np.asarray, params)`) → the same names as float32 tensors on the CPU,
+    for `parallel/shard.py: apply_params`."""
+    return {k: _t(v) for k, v in params.items()}
+
+
+def params_to_numpy(params) -> dict:
+    """Tensors by name (parameters or their gradients) → numpy float32, the
+    inverse of `params_from_numpy`."""
+    return {k: v.detach().cpu().numpy().astype(np.float32) for k, v in params.items()}

@@ -51,7 +51,7 @@ def write_quad_obj(dirpath: Path, name: str, verts, uvs=None) -> str:
     return f"{name}.obj"
 
 
-def _header(width, height, spp, integrator, rfilter) -> list[str]:
+def _header(width, height, spp, integrator, rfilter, sampler="independent") -> list[str]:
     rf = f'<rfilter type="{rfilter}"/>' if rfilter else ""
     return [
         "<scene>",
@@ -64,7 +64,7 @@ def _header(width, height, spp, integrator, rfilter) -> list[str]:
         "</transform>",
         rf,
         "</camera>",
-        f'<sampler type="independent"><integer name="sampleCount" value="{spp}"/></sampler>',
+        f'<sampler type="{sampler}"><integer name="sampleCount" value="{spp}"/></sampler>',
     ]
 
 
@@ -84,10 +84,12 @@ def _box_shapes(dirpath: Path) -> list[str]:
 
 
 def cornell_box_xml(dirpath, width: int = 800, height: int = 600, spp: int = 32,
-                    integrator: str = "path_mis", rfilter: str | None = None) -> Path:
-    """Write the Cornell box (XML + OBJ quads) into `dirpath`; returns the XML path."""
+                    integrator: str = "path_mis", rfilter: str | None = None,
+                    sampler: str = "independent") -> Path:
+    """Write the Cornell box (XML + OBJ quads) into `dirpath`; returns the XML
+    path. `sampler="adaptive"` makes the CLI render it adaptively."""
     dirpath = Path(dirpath)
-    parts = _header(width, height, spp, integrator, rfilter) + _box_shapes(dirpath)
+    parts = _header(width, height, spp, integrator, rfilter, sampler) + _box_shapes(dirpath)
     # mirror + glass spheres
     parts.append('<shape type="sphere"><point name="center" value="-0.45 0.35 -0.35"/>'
                  '<float name="radius" value="0.35"/><bsdf type="mirror"/></shape>')

@@ -4,7 +4,8 @@ Counterpart of `optix_renderer_tpu/utils/imageio.py` (the reference
 `Bitmap`, bitmap.cpp, and HDRLoader.h): EXR for HDR render output, PNG for
 LDR, and the texture / envmap readers. The EXR codec and the RGBE reader are
 the JAX package's pure-numpy ones. PNG is read and written with `zlib` +
-`struct` instead of PIL, so the package needs no image library.
+`struct` instead of PIL, so the package needs no image library; other
+formats (JPG, BMP, ...) go to PIL, imported when such a file is read.
 """
 
 from __future__ import annotations
@@ -229,20 +230,38 @@ def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
+def _png_palette_indices(data: bytes, h: int, w: int, depth: int) -> np.ndarray:
+    """Unfiltered palette scanlines → [h,w] indices; below 8 bits several
+    indices share a byte, the leftmost pixel in its high bits."""
+    stride = (w * depth + 7) // 8
+    rows = _unfilter(data, h, stride, 1)
+    if depth == 8:
+        return rows
+    per = 8 // depth
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)  # high bits first
+    idx = (rows[:, :, None] >> shifts) & np.uint8((1 << depth) - 1)
+    return idx.reshape(h, stride * per)[:, :w]
+
+
 def read_png(path: str | Path) -> np.ndarray:
-    """Decode an 8-bit, non-interlaced PNG (gray, gray + alpha, RGB or RGBA)
-    → [h,w,3] float32 in [0,1]; alpha is dropped, as PIL's `convert("RGB")`
-    drops it. Palette, 16-bit, sub-byte and interlaced files raise."""
+    """Decode a non-interlaced 8-bit PNG (gray, gray + alpha, RGB or RGBA)
+    or a palette PNG of 1-, 2-, 4- or 8-bit indices → [h,w,3] float32 in
+    [0,1]; alpha (and a palette's tRNS) is dropped, as PIL's
+    `convert("RGB")` drops it. 16-bit, sub-byte gray and interlaced files
+    raise (the JAX package reads a 16-bit PNG through PIL, which clips it to
+    nearly white)."""
     buf = Path(path).read_bytes()
     if buf[:8] != b"\x89PNG\r\n\x1a\n":
         raise ValueError(f"{path}: not a PNG file")
-    pos, idat, ihdr = 8, [], None
+    pos, idat, ihdr, plte = 8, [], None, None
     while pos < len(buf):
         (n,) = struct.unpack_from(">I", buf, pos)
         kind, data = buf[pos + 4:pos + 8], buf[pos + 8:pos + 8 + n]
         pos += 12 + n
         if kind == b"IHDR":
             ihdr = struct.unpack(">IIBBBBB", data)
+        elif kind == b"PLTE":
+            plte = np.frombuffer(data, np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(data)
         elif kind == b"IEND":
@@ -252,13 +271,23 @@ def read_png(path: str | Path) -> np.ndarray:
     w, h, depth, ctype, _, _, interlace = ihdr
     if interlace:
         raise ValueError(f"{path}: interlaced PNG is not supported")
+    data = zlib.decompress(b"".join(idat))
+    if ctype == 3:
+        if depth not in (1, 2, 4, 8):
+            raise ValueError(f"{path}: palette PNG with {depth}-bit indices")
+        if plte is None:
+            raise ValueError(f"{path}: palette PNG without a PLTE chunk")
+        idx = _png_palette_indices(data, h, w, depth)
+        if int(idx.max(initial=0)) >= plte.shape[0]:
+            raise ValueError(f"{path}: palette index past the {plte.shape[0]} PLTE entries")
+        return plte[idx].astype(np.float32) / 255.0
     if depth != 8:
         raise ValueError(f"{path}: {depth}-bit PNG is not supported (8-bit only)")
     if ctype not in _PNG_CHANNELS:
         raise ValueError(f"{path}: PNG colour type {ctype} is not supported (gray, gray + "
-                         "alpha, RGB, RGBA)")
+                         "alpha, RGB, RGBA, palette)")
     ch = _PNG_CHANNELS[ctype]
-    px = _unfilter(zlib.decompress(b"".join(idat)), h, w * ch, ch).reshape(h, w, ch)
+    px = _unfilter(data, h, w * ch, ch).reshape(h, w, ch)
     rgb = np.repeat(px[..., :1], 3, axis=-1) if ch <= 2 else px[..., :3]
     return rgb.astype(np.float32) / 255.0
 
@@ -319,8 +348,10 @@ def read_hdr(path: str | Path) -> np.ndarray:
 
 
 def read_image(path: str | Path) -> np.ndarray:
-    """Read PNG, `.hdr` (RGBE) or EXR → [h,w,3] float32; PNG lands in
-    [0,1], the HDR formats keep linear radiance."""
+    """Read PNG, `.hdr` (RGBE) or EXR, or any other format PIL opens (JPG,
+    BMP, ...) → [h,w,3] float32; the LDR formats land in [0,1], the HDR
+    formats keep linear radiance. PIL is imported only for those other
+    formats, and its absence raises ImportError naming the file."""
     path = Path(path)
     suffix = path.suffix.lower()
     if suffix == ".exr":
@@ -329,4 +360,10 @@ def read_image(path: str | Path) -> np.ndarray:
         return read_hdr(path)
     if suffix == ".png":
         return read_png(path)
-    raise ValueError(f"{path}: unsupported image format '{suffix}' (png, hdr, exr)")
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(f"{path}: reading '{suffix}' images needs PIL (Pillow), which is not "
+                          "installed; PNG, HDR and EXR need no image library") from e
+    with Image.open(path) as img:
+        return np.asarray(img.convert("RGB"), np.float32) / 255.0

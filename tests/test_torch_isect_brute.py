@@ -111,8 +111,9 @@ def test_exact_ties_go_to_the_lower_index(monkeypatch, split):
 
 def test_scan_path_passes_the_geometry_table(monkeypatch):
     """intersect() hands isect_brute the Geometry's own [T, 9] table on
-    every call: the kernel pads its rows in shared memory, so there is no
-    per-call host table to build."""
+    every call, detached (a view of the same storage, so no copy): the
+    kernel pads its rows in shared memory, so there is no per-call host
+    table to build."""
     scene, _, _ = presets.make_cornell_box(8, 6, 1)
     geom = scene.geometry
     seen = []
@@ -131,7 +132,10 @@ def test_scan_path_passes_the_geometry_table(monkeypatch):
                                                 maxt=torch.full((64,), float("inf"))))
         # the box is open toward the camera, so some rays leave it
         assert float((hit.t < 1e30).float().mean()) > 0.5
-    assert len(seen) == 2 and all(x is geom.tri_table for x in seen)
+    own = geom.tri_table
+    assert len(seen) == 2 and all(
+        x.data_ptr() == own.data_ptr() and x.shape == own.shape and x.stride() == own.stride()
+        and not x.requires_grad for x in seen)
     assert geom.tri_table.shape == (12, 9) and geom.tri_table.is_contiguous()
 
 

@@ -157,8 +157,9 @@ def test_render_refuses_what_the_kernel_does_not_cover(tmp_path):
     """A 70-triangle strip takes the path kernel's medium branch (the JAX
     kernel's MXU branch); what the path kernel does not cover, the mitchell
     filter or the `direct_mis` integrator, takes the scan path; all render
-    on the CPU. Adaptive sampling, not ported yet, still raises, naming its
-    ROADMAP item."""
+    on the CPU. An adaptive config takes the scan path and renders there
+    uniformly, as the JAX `render()` does: bit for bit the `mega=False`
+    render."""
     from optix_renderer_tpu_torch.render.render import render
 
     # a 66-triangle strip (70 in all): the medium branch
@@ -185,8 +186,13 @@ def test_render_refuses_what_the_kernel_does_not_cover(tmp_path):
     assert not pathk.pathk_eligible(scene, direct)
     out = render(scene, direct, sample_count=1, device="cpu")
     assert (out["weights"] > 0).all() and np.isfinite(out["composite"]).all()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        render(scene, dataclasses.replace(config, adaptive=True), device="cpu")
+    small = dataclasses.replace(config, width=8, height=6, max_depth=3)
+    adaptive = dataclasses.replace(small, adaptive=True)
+    assert pathk.pathk_eligible(scene, small) and not pathk.pathk_eligible(scene, adaptive)
+    out = render(scene, adaptive, sample_count=2, device="cpu")
+    ref = render(scene, small, sample_count=2, device="cpu", mega=False)
+    for k in ("composite", "albedo", "normal", "weights"):
+        assert np.array_equal(out[k], ref[k]), k
 
 
 def _dispatch_scene(tmp_path, kind):

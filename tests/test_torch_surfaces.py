@@ -171,7 +171,9 @@ def test_png_reader_matches_pil(tmp_path, ctype, channels):
 
 
 def test_png_reader_refuses_interlaced_and_16_bit(tmp_path):
-    """Interlaced, 16-bit and palette files raise a clear error."""
+    """Interlaced and 16-bit files, and a palette file without its PLTE
+    chunk, raise a clear error (palette files with one are read:
+    tests/test_torch_imageio.py)."""
     px = np.zeros((4, 4, 3), np.uint8)
     path = tmp_path / "t.png"
     path.write_bytes(_png(px, 2, [0], interlace=1))
@@ -180,8 +182,8 @@ def test_png_reader_refuses_interlaced_and_16_bit(tmp_path):
     path.write_bytes(_png(px, 2, [0], depth=16))
     with pytest.raises(ValueError, match="16-bit"):
         imageio.read_png(path)
-    path.write_bytes(_png(px[..., :1], 3, [0]))  # palette
-    with pytest.raises(ValueError, match="colour type 3"):
+    path.write_bytes(_png(px[..., :1], 3, [0]))  # palette indices, no PLTE chunk
+    with pytest.raises(ValueError, match="PLTE"):
         imageio.read_png(path)
 
 
