@@ -149,7 +149,32 @@ Drives the port's main path (`optix_renderer_tpu_torch`, no JAX) once:
    rounds, Mpaths/s, `isect_brute` 32 per round) and through the CLI on
    cuda (EXR, PNG and `_variance.exr`), and at 64x48 on the card and on
    the CPU: the same samples placed, median relative error < 1e-4, means
-   within 1e-3.
+   within 1e-3;
+23. renders cell `cornell_pmap_800x600`: the Cornell box with the photon
+   mapper at 800x600, depth 16, gaussian filter, 1,000,000 photons at the
+   radius the build derives (bbox diagonal / 500), 4 spp after a 1-spp
+   warm-up, through `render()`, which builds its photon map inside the
+   clock; times the build alone (`render.preprocess`) and the render on a
+   built map; asserts `isect_brute` 16 per photon batch and 16 per sample
+   (16 x (batches + 4)) and no other kernel; prints the batches, photons
+   emitted and stored, the radius, the photons found per gathering lane,
+   the peak memory, and a torch.profiler split of a 1-spp render: the
+   gather's device time and kernels (against the same render with the
+   estimate replaced by zeros), its calls and lanes, and the idle share;
+24. renders the photon mapper at depth 8 with 20,000 photons of radius
+   0.12 (tests/test_photon.py's configuration) on the card and on the CPU,
+   the Cornell box at 48x48 (`isect_brute`) and the 300-triangle box at
+   64x48 (`isect_bvh`): stored photons of one batch within 0.1 %, the
+   films by the median statistic (< 1e-3, means within 10 %), the exact
+   launches;
+25. the denoisers: `denoise_bilateral` on phase 23's film on the card and
+   the CPU (1e-5 relative); `train-denoiser --size 128 --steps 300
+   --clean-spp 256` through the CLI on cuda (its time, the loss must
+   halve); the trained net on phase 23's layers at 800x600 on the card (FP32
+   convolutions) and the CPU (1e-4 relative to 1 + |out|, the net's
+   output being expm1 of its log-space result), both beside a float64
+   result, as is the card's default TF32 call, a checkpoint written by the port reloading to the same output, and
+   `render --denoise learned` writing `_denoised.exr` / `.png`.
 
 Every phase prints its seconds and raises on failure. The second-to-last line is a JSON object with
 each kernel's route, source, launches, error, times and bound; the last line
@@ -1619,6 +1644,230 @@ def main() -> None:
               f"rounds, {ad_row['mpaths_s']:.3f} Mpaths/s; the CLI wrote EXR, PNG and "
               "_variance.exr; 64x48 on cuda matches the cpu")
 
+    # ---- 23. the photon mapper at full width: cornell_pmap_800x600
+    from optix_renderer_tpu_torch.denoise import learned
+    from optix_renderer_tpu_torch.denoise.bilateral import denoise_bilateral
+    from optix_renderer_tpu_torch.integrators import common
+    from optix_renderer_tpu_torch.ops import photon as photon_ops
+    from optix_renderer_tpu_torch.render.render import preprocess
+    from optix_renderer_tpu_torch.render.variance import variance_from_image
+
+    scene_p, cfg_p, _ = make_cornell_box(800, 600, 4, "photonmapper")
+    # photonRadius 0: the radius the build derives itself (bbox diagonal / 500)
+    cfg_p = dataclasses.replace(cfg_p, max_depth=16, rfilter="gaussian",
+                                iprops=(("photonCount", 1_000_000), ("photonRadius", 0.0)))
+    if pathk.pathk_eligible(scene_p, cfg_p):
+        raise AssertionError("the path kernel took the photon mapper")
+    n_p = cfg_p.width * cfg_p.height
+    render(scene_p, cfg_p, sample_count=1, device=dev)  # warm-up: builds its own map
+    # the build alone: one `isect_brute` launch per bounce of each photon batch
+    reset_counts()
+    scene_pm, build_s = synced(lambda: preprocess(scene_p, cfg_p, dev))
+    build_counts = read_counts()
+    pm = scene_pm.photons
+    batch = max(1_000_000 // 2, 1024)
+    emitted = int(round(1.0 / float(pm.inv_emitted)))
+    rounds = emitted // batch
+    if emitted != rounds * batch or build_counts["isect_brute"] != 16 * rounds:
+        raise AssertionError(f"photon build: {emitted} emitted, launches {build_counts}")
+    # the timed render builds its map again inside the clock (as every render() call does)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out_p, render_s = synced(lambda: render(scene_p, cfg_p, device=dev))
+    pmap_counts = read_counts()
+    pmap_peak = torch.cuda.max_memory_allocated(dev)
+    want_p = {**{k: 0 for k in pmap_counts}, "isect_brute": 16 * (rounds + 4)}
+    if pmap_counts != want_p:
+        raise AssertionError(f"photon-mapper render: launches {pmap_counts}, expected {want_p}")
+    # the same render on the map built above: the render without its build
+    reset_counts()
+    out_p2, render_nb_s = synced(lambda: render(scene_pm, cfg_p, device=dev))
+    if read_counts()["isect_brute"] != 64:
+        raise AssertionError(f"render on a built map: launches {read_counts()}")
+    comp_p = out_p["composite"]
+    if not (np.isfinite(comp_p).all() and comp_p.shape == (600, 800, 3) and comp_p.mean() > 0):
+        raise AssertionError("the photon-mapper film is not finite / positive")
+    # photons found per gathering lane on the first bounce of one sample of
+    # camera rays: candidates in the 27 cells' ranges, and those within r
+    with torch.no_grad():
+        ray0 = pixel_rays(scene_pm, cfg_p, 1, np.random.default_rng(23), dev)
+        ctx0 = common.trace(scene_pm, ray0)
+        p0 = ctx0.its.p[ctx0.its.valid & photon_ops.is_diffuse(scene_pm, ctx0.bsdf_id)]
+        lo, hi = photon_ops.cell_ranges(pm, p0)
+        found = torch.zeros(p0.shape[0], device=dev)
+        r2 = pm.radius * pm.radius
+        for k in range(photon_ops.MAX_PER_CELL):
+            d = pm.pos[torch.clamp(lo + k, 0, pm.pos.shape[0] - 1)] - p0[:, None, :]
+            found += (((lo + k) < hi) & ((d * d).sum(-1) < r2)).sum(1)
+        candidates = float((hi - lo).sum(1).float().mean())
+        full = float(((hi - lo) == photon_ops.MAX_PER_CELL).float().mean())
+    # the gather's share of device time: one 1-spp render on the built map
+    # under the profiler beside the same render with the estimate replaced
+    # by zeros (the rest of the path does not read it); the gather's calls
+    # and lanes counted
+    estimate = photon_ops.estimate_radiance
+    gather_calls = []
+
+    def counted_estimate(pm_, sc, ctx, wo):
+        gather_calls.append(wo.shape[0])
+        return estimate(pm_, sc, ctx, wo)
+
+    one = dataclasses.replace(cfg_p, sample_count=1)
+    try:
+        photon_ops.estimate_radiance = counted_estimate
+        prof_p = device_breakdown(lambda: render(scene_pm, one, device=dev), top=4)
+        photon_ops.estimate_radiance = lambda pm_, sc, ctx, wo: torch.zeros_like(wo)
+        prof_z = device_breakdown(lambda: render(scene_pm, one, device=dev), top=4)
+    finally:
+        photon_ops.estimate_radiance = estimate
+    gather_s = prof_p["device_busy_s"] - prof_z["device_busy_s"]
+    prof_p.update(without_gather={k: prof_z[k] for k in ("wall_s", "device_busy_s", "kernels",
+                                                          "idle_share")},
+                  gather_device_s=gather_s, gather_share=gather_s / prof_p["device_busy_s"],
+                  gather_kernels=prof_p["kernels"] - prof_z["kernels"],
+                  gather_calls=len(gather_calls), gather_lanes=gather_calls)
+    pmap_row = {
+        "mpaths_s": 4 * n_p / render_s / 1e6, "s": render_s, "build_s": build_s,
+        "mpaths_s_without_build": 4 * n_p / render_nb_s / 1e6, "s_without_build": render_nb_s,
+        "photon_rounds": rounds, "emitted": emitted, "stored": int(pm.pos.shape[0]),
+        "radius": float(pm.radius), "table_size": pm.table_size,
+        "gathering_lanes_bounce0": int(p0.shape[0]),
+        "mean_found_per_gather": float(found.mean()), "mean_candidates_per_gather": candidates,
+        "share_of_cells_capped": full, "launches": pmap_counts, "build_launches": build_counts,
+        "peak_gb": pmap_peak / 1e9, "profile_1spp": prof_p, "film_mean": float(comp_p.mean())}
+    print(f"  cornell_pmap_800x600 (photonmapper, depth 16, gaussian, 1,000,000 photons, "
+          f"auto radius), 4 spp, on {smi}: {json.dumps(pmap_row)}", flush=True)
+    phase(23, f"photon mapper at 800x600: {pmap_row['mpaths_s']:.4f} Mpaths/s with the photon "
+              f"build ({build_s:.3f} s apart), {pmap_row['mpaths_s_without_build']:.4f} without; "
+              f"isect_brute {pmap_counts['isect_brute']} = 16 x ({rounds} + 4); gather "
+              f"{prof_p['gather_share']:.3f} of device time; peak {pmap_row['peak_gb']:.2f} GB")
+
+    # ---- 24. the photon mapper on the card against the CPU
+    pm_small = {}
+    for name, (scene_s, cfg_s) in {
+            "cornell_48x48": make_cornell_box(48, 48, 4, "photonmapper")[:2],
+            "lbvh_300_64x48": make_tessellated_cornell(64, 48, 4, "photonmapper", nu=12,
+                                                       nv=7)[:2]}.items():
+        cfg_s = dataclasses.replace(cfg_s, max_depth=8,
+                                    iprops=(("photonCount", 20000), ("photonRadius", 0.12)))
+        kernel = "isect_bvh_closest" if name.startswith("lbvh") else "isect_brute"
+        # the first photon batch's stored slots on each device, and the
+        # batches of one build (one launch per bounce of each)
+        stored = {}
+        for d_ in (dev, "cpu"):
+            with torch.no_grad():
+                stored[str(d_)] = int(photon_ops.trace_photons(
+                    scene_s.to(d_), 10000, cfg_s.max_depth, 1, 0)[3].sum())
+        reset_counts()
+        preprocess(scene_s, cfg_s, dev)
+        rounds_s = read_counts()[kernel] // cfg_s.max_depth
+        reset_counts()
+        a = render(scene_s, cfg_s, device=dev)["composite"]
+        ln = read_counts()
+        b = render(scene_s, cfg_s, device="cpu")["composite"]
+        rel = np.abs(a - b) / (np.abs(b) + 1e-3)
+        st = {"stored_cuda": stored[str(dev)], "stored_cpu": stored["cpu"], "rounds": rounds_s,
+              "median_rel_err": float(np.median(rel)), "max_abs_err": float(np.abs(a - b).max()),
+              "mean_cuda": float(a.mean()), "mean_cpu": float(b.mean()), "launches": ln}
+        pm_small[name] = st
+        print(f"  photon mapper {name}, depth 8, 20,000 photons, radius 0.12, 4 spp, cuda "
+              f"against cpu: {json.dumps(st)}", flush=True)
+        want = {**{k: 0 for k in ln}, kernel: cfg_s.max_depth * (rounds_s + 4)}
+        if ln != want:
+            raise AssertionError(f"photon mapper {name}: launches {ln}, expected {want}")
+        if not (abs(st["stored_cuda"] - st["stored_cpu"]) <= 1e-3 * st["stored_cpu"]
+                and st["median_rel_err"] < 1e-3
+                and abs(st["mean_cuda"] - st["mean_cpu"]) <= 0.1 * abs(st["mean_cpu"])):
+            raise AssertionError(f"photon mapper {name}: the card differs from the CPU: {st}")
+    phase(24, "the photon mapper on cuda matches the cpu (stored photons, median statistic) on "
+              "the Cornell box (isect_brute) and the 300-triangle box (isect_bvh)")
+
+    # ---- 25. the denoisers: bilateral and learned, the card against the CPU
+    film_p = np.concatenate([comp_p, out_p["weights"][..., None]], axis=-1)
+    bil = {}
+    for d_ in (dev, "cpu"):
+        f_ = torch.from_numpy(film_p).to(d_)
+        bil[str(d_)] = denoise_bilateral(f_[..., :3], variance_from_image(f_)).cpu().numpy()
+    bil_err = float((np.abs(bil[str(dev)] - bil["cpu"]) / (np.abs(bil["cpu"]) + 1e-6)).max())
+    print(f"  bilateral on phase 23's film, cuda against cpu: max rel err {bil_err:.3e}")
+    if not bil_err <= 1e-5:
+        raise AssertionError(f"bilateral: the card differs from the CPU by {bil_err}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        ck = Path(tmp) / "denoiser.npz"
+        t0 = time.time()
+        train = subprocess.run(
+            [sys.executable, "-m", "optix_renderer_tpu_torch", "train-denoiser", "--device",
+             "cuda", "--size", "128", "--steps", "300", "--clean-spp", "256", "-o", str(ck)],
+            cwd=ROOT, check=True, timeout=600, capture_output=True, text=True).stdout
+        train_s = time.time() - t0
+        m = re.search(r"loss ([0-9.]+) → ([0-9.]+); saved", train)
+        if m is None or not ck.exists():
+            raise AssertionError(f"train-denoiser wrote no checkpoint:\n{train}")
+        loss0, loss1 = float(m.group(1)), float(m.group(2))
+        print(f"  train-denoiser 128x96, 300 steps, 256 clean spp, cuda, on {smi}: "
+              f"{train_s:.2f} s of command, loss {loss0} -> {loss1}", flush=True)
+        if not loss1 < 0.5 * loss0:
+            raise AssertionError(f"train-denoiser: loss {loss0} -> {loss1}, not halved")
+        # the trained net at 800x600 on phase 23's layers, card against CPU in FP32
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            den, nets = {}, {}
+            for d_ in (dev, "cpu"):
+                params = learned.load_checkpoint(ck, d_)
+                lay = [torch.from_numpy(out_p[k]).to(d_)
+                       for k in ("composite", "albedo", "normal")]
+                nets[str(d_)] = (params, lay)
+                den[str(d_)] = learned.apply(params, *lay).cpu().numpy()
+            params_c, lay_c = nets[str(dev)]
+            ms_apply = event_ms(lambda: learned.apply(params_c, *lay_c), reps=5)
+            # the same call with TF32 convolutions, the card's default
+            torch.backends.cudnn.allow_tf32 = True
+            den_tf32 = learned.apply(params_c, *lay_c).cpu().numpy()
+            ms_tf32 = event_ms(lambda: learned.apply(params_c, *lay_c), reps=5)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        # out = expm1(y): the convolutions' rounding of y reaches out times
+        # (1 + out), so the error is taken relative to 1 + |out|; the float64
+        # result on the CPU says how far each FP32 one is from exact
+        p64 = {k: v.double() for k, v in nets["cpu"][0].items()}
+        exact = learned.apply(p64, *(t.double() for t in nets["cpu"][1])).numpy()
+
+        def rel1(a_, b_):
+            return float((np.abs(a_ - b_) / (1.0 + np.abs(b_))).max())
+
+        den_err = rel1(den[str(dev)], den["cpu"])
+        den_exact = {"cuda": rel1(den[str(dev)], exact), "cpu": rel1(den["cpu"], exact),
+                     "cuda_tf32": rel1(den_tf32, exact)}
+        # a checkpoint the port writes reloads to the same output
+        ck2 = Path(tmp) / "again.npz"
+        learned.save_checkpoint(ck2, learned.load_checkpoint(ck, dev))
+        again = learned.apply(learned.load_checkpoint(ck2, dev), *lay_c)
+        same = bool(torch.equal(again, learned.apply(learned.load_checkpoint(ck, dev), *lay_c)))
+        print(f"  learned denoiser at 800x600, cuda (FP32 convolutions) against cpu: max "
+              f"|a-b|/(1+|b|) {den_err:.3e} (against float64: cuda {den_exact['cuda']:.3e}, "
+              f"cpu {den_exact['cpu']:.3e}, cuda with TF32 {den_exact['cuda_tf32']:.3e}); "
+              f"{ms_apply:.3f} ms per call on the card ({ms_tf32:.3f} with TF32); checkpoint "
+              f"round trip equal: {same}", flush=True)
+        if not (den_err <= 1e-4 and same and np.isfinite(den[str(dev)]).all()):
+            raise AssertionError(f"learned denoiser: err {den_err}, round trip {same}")
+        xml = cornell_box_xml(tmp, 800, 600, 4, "photonmapper")
+        base = Path(tmp) / "denoised"
+        subprocess.run([sys.executable, "-m", "optix_renderer_tpu_torch", "render", str(xml),
+                        "--device", "cuda", "--denoise", "learned", "--denoiser-ckpt", str(ck),
+                        "-o", str(base)], cwd=ROOT, check=True, timeout=600)
+        img = read_exr(str(base) + "_denoised.exr")
+        if not ((Path(tmp) / "denoised_denoised.png").stat().st_size > 0
+                and img.shape == (600, 800, 3) and np.isfinite(img).all()):
+            raise AssertionError("the CLI's denoised outputs are missing or malformed")
+    den_row = {"bilateral_max_rel_err": bil_err, "train_s": train_s, "loss_first": loss0,
+               "loss_last": loss1, "learned_max_rel_err": den_err,
+               "learned_err_against_float64": den_exact, "learned_apply_ms": ms_apply,
+               "learned_apply_tf32_ms": ms_tf32}
+    print(f"  denoisers on {smi}: {json.dumps(den_row)}")
+    phase(25, f"denoisers: bilateral and learned on cuda match the cpu; train-denoiser "
+              f"{train_s:.1f} s, loss {loss0} -> {loss1}; the CLI wrote _denoised.exr / .png")
+
     def row(name, source, replaces, launches, err, ms, plain_ms, bnd, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -1637,6 +1886,8 @@ def main() -> None:
                 "isect_bvh_closest"],
             launches_gradient_lbvh_forward=grad_rows["lbvh_300_path_mis_depth3"][
                 "forward_launches"]["isect_bvh_closest"],
+            launches_photon_lbvh_64x48=pm_small["lbvh_300_64x48"]["launches"][
+                "isect_bvh_closest"],
             kernel="bvh_kernel<false> (child-pair walk, persistent warps fed from a ray counter)",
             camera=bvh_rows["closest_camera"], bounce=bvh_rows["closest_bounce"],
             ms_bounce=bvh_rows["closest_bounce"]["ms"],
@@ -1660,6 +1911,9 @@ def main() -> None:
             launches_gradient_config_h_forward=grad_rows["config_h_path_vol_mis_depth8"][
                 "forward_launches"]["isect_brute"],
             launches_adaptive_render=ad_row["launches"]["isect_brute"],
+            launches_photon_render=pmap_counts["isect_brute"],
+            launches_photon_build=build_counts["isect_brute"],
+            launches_photon_cornell_48x48=pm_small["cornell_48x48"]["launches"]["isect_brute"],
             ptxas=brute_regs, instructions_per_pair=brute_loops),
         row("pathk_trace_medium", KERNEL_SOURCE, REPLACES, launches_m, err_medium, medium_ms,
             medium_plain_ms, walk_bound, branch="MXU, optix_renderer_tpu/ops/pallas/pathk.py:622",

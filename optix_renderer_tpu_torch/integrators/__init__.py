@@ -5,13 +5,15 @@ integrator has the signature
 
     li(scene, config, ray, sampler) -> (L [N,3], albedo [N,3], normal [N,3], sampler)
 
-The port has the ten surface integrators, the single-bounce ones of
-`simple.py` and `path_mats` / `path_mis`, and the volumetric
-`path_vol_mats` / `path_vol_mis` of `volpath.py`; the JAX package's photon
-mapper raises `NotImplementedError` naming the ROADMAP item that ports it.
+The port has all thirteen integrators of the JAX package: the ten surface
+integrators, the single-bounce ones of `simple.py` and `path_mats` /
+`path_mis`; the volumetric `path_vol_mats` / `path_vol_mis` of
+`volpath.py`; and the photon mapper of `pmap.py`, whose map
+`render.preprocess` builds before the render.
 """
 
 from optix_renderer_tpu_torch.integrators import path as _path
+from optix_renderer_tpu_torch.integrators import pmap as _pmap
 from optix_renderer_tpu_torch.integrators import simple as _simple
 from optix_renderer_tpu_torch.integrators import volpath as _volpath
 
@@ -28,17 +30,11 @@ REGISTRY = {
     "path_mis": _path.li_path_mis,
     "path_vol_mats": _volpath.li_path_vol_mats,
     "path_vol_mis": _volpath.li_path_vol_mis,
-}
-
-# the JAX package's other integrators → the ROADMAP item that ports them
-_NOT_YET = {
-    "photonmapper": "ROADMAP Queue 1 item 13 (photon mapping)",
+    "photonmapper": _pmap.li_photonmapper,
 }
 
 
 def get_integrator(name: str):
     if name in REGISTRY:
         return REGISTRY[name]
-    if name in _NOT_YET:
-        raise NotImplementedError(f"integrator '{name}' is not ported yet: {_NOT_YET[name]}")
     raise KeyError(f"unknown integrator '{name}'; available: {sorted(REGISTRY)}")

@@ -23,6 +23,7 @@ from optix_renderer_tpu_torch.core import dpdf, rng
 from optix_renderer_tpu_torch.render import film as film_mod
 from optix_renderer_tpu_torch.render.render import (
     MAX_LANES,
+    preprocess,
     render_round_accumulate,
     resolve_device,
 )
@@ -46,7 +47,7 @@ def render_adaptive(scene: SceneData, config: RenderConfig, sample_count: int | 
     """Adaptive render → numpy layers composite / albedo / normal / weights,
     the normalized `variance` map [H,W] and `samples_placed`."""
     device = resolve_device(device)
-    scene = scene.to(device)
+    scene = preprocess(scene, config, device).to(device)
     spp = sample_count if sample_count is not None else config.sample_count
     w, h = config.width, config.height
     n_pix = w * h

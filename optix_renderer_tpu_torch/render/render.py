@@ -19,6 +19,7 @@ Layer order matches ERenderLayer (integrator.h:29-39):
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 
@@ -34,6 +35,32 @@ from optix_renderer_tpu_torch.scene.data import RenderConfig, SceneData
 # Upper bound on rays in flight per chunk: at 2^19 lanes an 800×600 frame is
 # one chunk per sample round, as in the JAX package (render.py:35).
 MAX_LANES = 1 << 19
+
+
+def preprocess(scene: SceneData, config: RenderConfig, device="cuda") -> SceneData:
+    """The integrator's preprocess hook (`Integrator::preprocess`,
+    render.cpp:272; render.py:38-53 of the JAX package): the photon mapper
+    builds its photon map here, on `device`, once per render, from the
+    integrator's `photonCount` (default 100,000) and `photonRadius` (0:
+    the scene's bbox diagonal / 500), with max(emitters, 1) lights and the
+    config's seed, and returns the scene on `device` with its map. A scene
+    that already carries a map (one built by the JAX package and carried
+    across by `scene_from_numpy`) keeps it."""
+    if config.integrator == "photonmapper" and scene.photons.pos.shape[0] == 0:
+        from optix_renderer_tpu_torch.ops.photon import build_photon_map
+
+        scene = scene.to(device)
+        pm = build_photon_map(
+            scene,
+            photon_count=int(config.iprop("photonCount", 100_000)),
+            radius=float(config.iprop("photonRadius", 0.0)),
+            max_depth=config.max_depth,
+            n_lights=max(config.n_emitters, 1),
+            seed=config.seed,
+            device=device,
+        )
+        scene = dataclasses.replace(scene, photons=pm)
+    return scene
 
 
 def _norm_ckpt_path(path: str) -> str:
@@ -180,7 +207,8 @@ def render(
 
     An adaptive config renders uniformly here, on the scan path (as the JAX
     `render()` does); `render/adaptive.py: render_adaptive` places its
-    samples by variance.
+    samples by variance. `preprocess` runs first, so a photon-mapper render
+    builds its photon map inside this call.
 
     Both paths run the one loop below; each gives a `step(acc, spp0, n)`
     that adds n samples per pixel, and the samples one step may take
@@ -194,6 +222,7 @@ def render(
     if wavefront:
         raise NotImplementedError("wavefront (path-regeneration) mode is not ported: ROADMAP "
                                   "Queue 1 'Leave out' (render/wavefront.py)")
+    scene = preprocess(scene, config, device)
     if mega is not False and pathk_eligible(scene, config):
         step, group = mega_step(scene, config, device), GROUP
     else:

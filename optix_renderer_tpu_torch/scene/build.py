@@ -13,6 +13,8 @@ per-area-light triangle CDFs (mesh.cpp:15-46), the volume-light tables,
 the media's corner stacks and the envmap's tables (`ops/envmap.py`) as
 the JAX builder does, row for row, so both produce the same tables, and
 from 257 triangles on the LBVH tables of the general path (`ops/bvh.py`).
+A scene's `<denoiser>` lands in `RenderConfig.denoiser` / `dprops`; its
+photon map stays empty until `render.preprocess` builds it.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ from optix_renderer_tpu_torch.scene.data import (
     Textures,
     _t,
     corner_stack,
+    empty_photon_map,
 )
 from optix_renderer_tpu_torch.scene.parser import SceneNode, load_from_xml
 from optix_renderer_tpu_torch.utils import imageio as iio
@@ -412,8 +415,6 @@ class _Builder:
 
     def build(self) -> tuple[SceneData, RenderConfig, dict]:
         root = self.root
-        if root.child("denoiser") is not None:
-            raise SceneBuildError("denoisers: ROADMAP Queue 1 item 13")
         sampler = root.child("sampler")
 
         for sh in root.children_of("shape"):
@@ -594,6 +595,14 @@ class _Builder:
         if integrator is not None:
             iprops = tuple((k, v) for k, v in integrator.props.props.items()
                            if isinstance(v, (int, float, bool, str)))
+        # a scene-level <denoiser> (scene.h:41-201) is recorded, so that the
+        # CLI runs its pass without a flag (build.py:934-956 of the JAX package)
+        den_node = root.child("denoiser")
+        denoiser, dprops = "", ()
+        if den_node is not None:
+            denoiser = den_node.type or "simple"
+            dprops = tuple((k, v) for k, v in den_node.props.props.items()
+                           if isinstance(v, (int, float, bool, str)))
         config = RenderConfig(
             width=cp.get_integer("width", 1280),
             height=cp.get_integer("height", 720),
@@ -601,6 +610,8 @@ class _Builder:
             integrator=integrator.type if integrator is not None else "normals",
             iprops=iprops,
             rfilter=rfilter,
+            denoiser=denoiser,
+            dprops=dprops,
             sampler=sampler.type if sampler is not None else "independent",
             # as the JAX builder: `adaptive_uniform_rounds` keeps its default
             adaptive=sampler is not None and sampler.type == "adaptive",
@@ -623,7 +634,7 @@ class _Builder:
             emitters=emitters, media=self.media_table(), camera=cam,
             emitter_pick=dpdf_mod.build([r["light_prob"] for r in self.em_rows]),
             envmap_emitter=envmap_emitter, envmap=envmap, envmap_pick=envmap_pick,
-            ambient_medium=ambient_medium,
+            ambient_medium=ambient_medium, photons=empty_photon_map(),
         )
         return scene, config, {"integrator_props": integrator.props if integrator else None}
 

@@ -7,7 +7,8 @@ triangles on) and spheres, the shape/BSDF/texture/medium attachment tables
 their triangle CDFs, sphere ids and volume-sampling tables, the media with
 their phase functions and voxel-grid corner stacks, the emitter-pick
 distribution, the camera and the environment map's lat-long tables with
-their pixel distribution. Field names and layouts are the JAX package's, so
+their pixel distribution, and the photon map that the photon mapper builds
+before it renders. Field names and layouts are the JAX package's, so
 `scene_from_numpy` can carry a JAX scene across by name. Every table has
 `.to(device)`.
 """
@@ -16,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -72,14 +74,49 @@ class SceneBuildError(Exception):
     """The scene uses something this package cannot render yet."""
 
 
+class PhotonMap(NamedTuple):
+    """Hash-grid photon map (ops/photon.py), sorted by cell hash; the JAX
+    package's `PhotonMap` (its ops/photon.py:57-68)."""
+
+    pos: torch.Tensor  # [P,3]
+    dir: torch.Tensor  # [P,3] direction the photon arrived from (= −ray.d)
+    power: torch.Tensor  # [P,3]
+    cell_hash: torch.Tensor  # [P] int32, ascending
+    origin: torch.Tensor  # [3] grid origin
+    inv_cell: torch.Tensor  # [] 1 / cell size
+    radius: torch.Tensor  # [] gather radius
+    inv_emitted: torch.Tensor  # [] 1 / photons emitted
+    table_size: int  # hash modulus, a power of two
+
+    def _map(self, fn):
+        return self._replace(**{k: fn(v) for k, v in self._asdict().items()
+                                if isinstance(v, torch.Tensor)})
+
+    def to(self, device):
+        return self._map(lambda v: v.to(device))
+
+    def detach(self):
+        return self._map(lambda v: v.detach())
+
+
+def empty_photon_map() -> PhotonMap:
+    """The map of a scene that has none (no photon mapper, or not built yet)."""
+    return PhotonMap(
+        pos=torch.zeros((0, 3)), dir=torch.zeros((0, 3)), power=torch.zeros((0, 3)),
+        cell_hash=torch.zeros((0,), dtype=torch.int32), origin=torch.zeros(3),
+        inv_cell=torch.tensor(1.0), radius=torch.tensor(0.0), inv_emitted=torch.tensor(0.0),
+        table_size=1,
+    )
+
+
 class _Tables:
     """`.to(device)` and `.detach()` over every tensor field, recursing into
-    nested tables; both are differentiable as `Tensor.to` / cut the graph as
-    `Tensor.detach` do."""
+    nested tables and the photon map; both are differentiable as `Tensor.to`
+    / cut the graph as `Tensor.detach` do."""
 
     def _map(self, fn):
         def each(v):
-            return fn(v) if isinstance(v, (torch.Tensor, _Tables)) else v
+            return fn(v) if isinstance(v, (torch.Tensor, _Tables, PhotonMap)) else v
 
         return dataclasses.replace(
             self, **{f.name: each(getattr(self, f.name)) for f in dataclasses.fields(self)}
@@ -293,6 +330,7 @@ class SceneData(_Tables):
     envmap: EnvmapTables
     envmap_pick: DiscretePDF  # luminance·sinθ pixel distribution ([1] for a constant map)
     ambient_medium: int  # medium id of the scene's ambient medium, or -1
+    photons: PhotonMap  # empty until `render.preprocess` builds it for the photon mapper
 
 
 @dataclass(frozen=True)
@@ -392,6 +430,7 @@ def scene_from_numpy(tree) -> SceneData:
         grid=tuple(int(x) for x in np.asarray(md.vol_density).shape[1:]),
     )
     cam = tree.camera
+    pm = tree.photons
     return SceneData(
         geometry=geometry,
         shapes=Shapes(**{k: _t(getattr(sh, k), i32) for k in (
@@ -417,6 +456,12 @@ def scene_from_numpy(tree) -> SceneData:
         envmap=EnvmapTables(img=_t(tree.envmap.img), rot=_t(tree.envmap.rot)),
         envmap_pick=DiscretePDF(pmf=_t(tree.envmap_pick.pmf), cdf=_t(tree.envmap_pick.cdf)),
         ambient_medium=int(np.asarray(tree.ambient_medium)),
+        photons=PhotonMap(
+            **{k: _t(getattr(pm, k)) for k in (
+                "pos", "dir", "power", "origin", "inv_cell", "radius", "inv_emitted")},
+            cell_hash=_t(pm.cell_hash, i32),
+            table_size=int(pm.table_size),
+        ),
     )
 
 

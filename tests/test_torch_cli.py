@@ -1,6 +1,14 @@
-"""The port's `render` CLI on the CPU, its refusal to fall back from CUDA, and
-that the port runs without importing JAX."""
+"""The port's `render` and `train-denoiser` CLI on the CPU, its refusal to
+fall back from CUDA, and that the port runs without importing JAX.
 
+The denoiser runs: `render --denoise` (bilateral) and a scene's
+`<denoiser>` write `<out>_denoised.exr` / `.png`, the bilateral pass with
+the scene's sigma_d / sigma_vr / min(range, 3); `--denoise learned` without
+a checkpoint warns and writes the bilateral filter's output; with one it
+writes the net's; `train-denoiser` writes a checkpoint that the JAX
+package loads."""
+
+import dataclasses
 import os
 import struct
 import subprocess
@@ -40,8 +48,9 @@ def test_render_cuda_without_gpu_raises(tmp_path, monkeypatch):
 
 def test_cpu_render_does_not_import_jax(tmp_path):
     """The path kernel's plain version, small and medium branch (a
-    300-triangle scene), and the scan path over the LBVH (the same scene with
-    `mega=False`) render without JAX."""
+    300-triangle scene), the scan path over the LBVH (the same scene with
+    `mega=False`) and the photon mapper render, and the denoisers and the
+    CLI import, without JAX."""
     code = (
         "import dataclasses, sys\n"
         "from optix_renderer_tpu_torch.scene.presets import make_cornell_box\n"
@@ -57,6 +66,12 @@ def test_cpu_render_does_not_import_jax(tmp_path):
         "assert out['composite'].shape == (6, 8, 3) and (out['weights'] == 1.0).all()\n"
         "out = render(s, c, sample_count=1, device='cpu', mega=False)\n"
         "assert out['composite'].shape == (6, 8, 3) and (out['weights'] > 0).all()\n"
+        "s, c, _ = make_cornell_box(8, 6, 1, 'photonmapper')\n"
+        "c = dataclasses.replace(c, max_depth=3,\n"
+        "                        iprops=(('photonCount', 2000), ('photonRadius', 0.2)))\n"
+        "out = render(s, c, sample_count=1, device='cpu')\n"
+        "import optix_renderer_tpu_torch.denoise.learned, optix_renderer_tpu_torch.cli\n"
+        "assert out['composite'].mean() > 0\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'optix_renderer_tpu.')))\n"
         "assert 'optix_renderer_tpu' not in sys.modules and not bad, bad\n"
         "print('ok')\n"
@@ -65,3 +80,96 @@ def test_cpu_render_does_not_import_jax(tmp_path):
                           text=True, timeout=300, env={**os.environ, "PYTHONPATH": str(REPO)})
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def _den_scene(tmp_path, den=""):
+    """A 12×8 Cornell box, photon mapper, depth 3, 2,000 photons of radius
+    0.15, with an optional scene `<denoiser>`."""
+    xml = cornell_box_xml(tmp_path, width=12, height=8, spp=2, integrator="photonmapper")
+    text = xml.read_text().replace('<integrator type="photonmapper"/>',
+                                   '<integrator type="photonmapper">'
+                                   '<integer name="photonCount" value="2000"/>'
+                                   '<float name="photonRadius" value="0.15"/></integrator>')
+    xml.write_text(text.replace("</scene>", den + "</scene>"))
+    return xml
+
+
+def _bilateral_ref(out_base, sigma_d=1.0, sigma_vr=0.6, inner_range=1):
+    """The bilateral pass on the film the CLI wrote, as the CLI forms it."""
+    from optix_renderer_tpu_torch.denoise.bilateral import denoise_bilateral
+    from optix_renderer_tpu_torch.render.render import render
+    from optix_renderer_tpu_torch.render.variance import variance_from_image
+    from optix_renderer_tpu_torch.scene.build import load_scene
+
+    scene, config, _ = load_scene(out_base.parent / "cbox.xml")
+    out = render(scene, dataclasses.replace(config, max_depth=3), device="cpu")
+    rgb = torch.from_numpy(out["composite"])
+    film = torch.cat([rgb, torch.from_numpy(out["weights"])[..., None]], dim=-1)
+    return denoise_bilateral(rgb, variance_from_image(film), sigma_d=sigma_d, sigma_vr=sigma_vr,
+                             inner_range=inner_range).numpy()
+
+
+def test_render_denoise_writes_denoised(tmp_path):
+    xml = _den_scene(tmp_path)
+    base = tmp_path / "out"
+    assert cli.main(["render", str(xml), "--device", "cpu", "--depth", "3", "--denoise",
+                     "-o", str(base)]) == 0
+    den = read_exr(str(base) + "_denoised.exr")
+    assert den.shape == (8, 12, 3) and np.isfinite(den).all() and den.mean() > 0
+    assert (tmp_path / "out_denoised.png").read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+    np.testing.assert_allclose(den, _bilateral_ref(base), rtol=1e-6, atol=1e-6)
+    # no flag, no scene denoiser: no denoised output
+    assert cli.main(["render", str(xml), "--device", "cpu", "--depth", "3",
+                     "-o", str(tmp_path / "plain")]) == 0
+    assert not (tmp_path / "plain_denoised.exr").exists()
+
+
+def test_scene_denoiser_runs_without_flag(tmp_path):
+    """`<denoiser type="simple">` is the bilateral filter with the scene's
+    sigma_d, sigma_vr and range, capped at 3."""
+    den = ('<denoiser type="simple"><float name="sigma_d" value="2.0"/>'
+           '<float name="sigma_vr" value="0.9"/><integer name="range" value="7"/></denoiser>')
+    xml = _den_scene(tmp_path, den)
+    base = tmp_path / "out"
+    assert cli.main(["render", str(xml), "--device", "cpu", "--depth", "3",
+                     "-o", str(base)]) == 0
+    np.testing.assert_allclose(read_exr(str(base) + "_denoised.exr"),
+                               _bilateral_ref(base, 2.0, 0.9, 3), rtol=1e-6, atol=1e-6)
+
+
+def test_denoise_learned_without_checkpoint_uses_bilateral(tmp_path, capsys):
+    xml = _den_scene(tmp_path)
+    base = tmp_path / "out"
+    assert cli.main(["render", str(xml), "--device", "cpu", "--depth", "3", "--denoise",
+                     "learned", "--denoiser-ckpt", str(tmp_path / "missing.npz"),
+                     "-o", str(base)]) == 0
+    assert "not found — falling back to bilateral" in capsys.readouterr().out
+    np.testing.assert_allclose(read_exr(str(base) + "_denoised.exr"), _bilateral_ref(base),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_train_denoiser_checkpoint_loads_in_jax(tmp_path):
+    """`train-denoiser` on the CPU writes a checkpoint that the JAX package
+    loads, and `render --denoise learned` applies it."""
+    import jax.numpy as jnp
+
+    from optix_renderer_tpu.denoise import learned as jlearned
+    from optix_renderer_tpu_torch.denoise import learned
+
+    ck = tmp_path / "den.npz"
+    assert cli.main(["train-denoiser", "--device", "cpu", "--steps", "2", "--size", "16",
+                     "--clean-spp", "4", "-o", str(ck)]) == 0
+    jp = jlearned.load_checkpoint(str(ck))
+    tp = learned.load_checkpoint(ck, device="cpu")
+    r = np.random.default_rng(0)
+    img = [r.random((8, 12, 3), np.float32) for _ in range(3)]
+    np.testing.assert_allclose(learned.apply(tp, *map(torch.from_numpy, img)).numpy(),
+                               np.asarray(jlearned.apply(jp, *map(jnp.asarray, img))),
+                               rtol=1e-5, atol=1e-5)
+    xml = _den_scene(tmp_path)
+    base = tmp_path / "out"
+    assert cli.main(["render", str(xml), "--device", "cpu", "--depth", "3", "--denoise",
+                     "learned", "--denoiser-ckpt", str(ck), "-o", str(base)]) == 0
+    den = read_exr(str(base) + "_denoised.exr")
+    assert den.shape == (8, 12, 3) and np.isfinite(den).all() and (den >= 0).all()
+    assert not np.allclose(den, _bilateral_ref(base), rtol=1e-3)

@@ -121,13 +121,26 @@ def test_sample_to_camera_matrix_matches_jax():
 
 def test_unsupported_scenes_raise(tmp_path):
     """What the port cannot render yet raises, naming its ROADMAP item (a
-    denoiser, item 13); a medium and a sphere-area emitter, once refused,
-    now build and render on the CPU (through the scan path), and a JAX
-    scene with a medium carries across."""
+    `<test>` root, item 14); a scene `<denoiser>`, once refused, lands in
+    the config with its properties, as in the JAX builder
+    (tests/test_io_scene.py:162-183); a medium and a sphere-area emitter,
+    once refused, now build and render on the CPU (through the scan path),
+    and a JAX scene with a medium carries across."""
     from optix_renderer_tpu_torch.render.render import render
 
-    with pytest.raises(SceneBuildError, match="item 13"):
-        build.load_scene(room_xml(tmp_path, LIGHTS["point"], extra='<denoiser type="simple"/>'))
+    test_root = tmp_path / "t.xml"
+    test_root.write_text('<test type="ttest"><integer name="sampleCount" value="4"/></test>')
+    with pytest.raises(SceneBuildError, match="item 14"):
+        build.load_scene(test_root)
+    den = ('<denoiser type="simple"><float name="sigma_d" value="6.0"/>'
+           '<float name="sigma_vr" value="1.5"/><integer name="range" value="7"/></denoiser>')
+    _, config, _ = build.load_scene(room_xml(tmp_path, LIGHTS["point"], extra=den))
+    _, jconfig, _ = jbuild.load_scene(room_xml(tmp_path, LIGHTS["point"], extra=den))
+    assert config.denoiser == "simple" and config.dprops == jconfig.dprops
+    assert (config.dprop("sigma_d"), config.dprop("sigma_vr"), config.dprop("range")) == (
+        6.0, 1.5, 7)
+    _, config, _ = build.load_scene(room_xml(tmp_path, LIGHTS["point"], extra="<denoiser/>"))
+    assert config.denoiser == "simple" and config.dprops == ()
     medium = ('<shape type="sphere"><point name="center" value="0 1 0"/>'
               '<float name="radius" value="0.3"/>'
               '<medium type="homog" name="interior"><color name="sigma_s" value="1 1 1"/>'

@@ -414,12 +414,13 @@ _PORT_ONLY = {"tri_table", "bvh", "kinds", "mapped", "sphere_lights", "volume_li
 
 
 def _compare_fields(port, jax_tree, path=""):
-    for f in dataclasses.fields(port):
-        if f.name in _PORT_ONLY:
+    names = port._fields if isinstance(port, tuple) else [f.name for f in dataclasses.fields(port)]
+    for name in names:
+        if name in _PORT_ONLY:
             continue
-        got, ref = getattr(port, f.name), getattr(jax_tree, f.name)
-        where = f"{path}.{f.name}"
-        if dataclasses.is_dataclass(got):
+        got, ref = getattr(port, name), getattr(jax_tree, name)
+        where = f"{path}.{name}"
+        if dataclasses.is_dataclass(got) or hasattr(got, "_fields"):  # tables, the photon map
             _compare_fields(got, ref, where)
         elif isinstance(got, torch.Tensor):
             ref = np.asarray(ref)

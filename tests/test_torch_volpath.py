@@ -241,10 +241,10 @@ def test_temperature_emission_analytic(tmp_path):
 
 def _assert_same_tables(a, b, path="scene"):
     """Every field of two scenes' tables equal (float tables to 1e-6)."""
-    if dataclasses.is_dataclass(a):
+    if dataclasses.is_dataclass(a) or hasattr(a, "_fields"):  # tables, the photon map
         assert type(a) is type(b), path
-        for f in dataclasses.fields(a):
-            _assert_same_tables(getattr(a, f.name), getattr(b, f.name), f"{path}.{f.name}")
+        for name in a._fields if isinstance(a, tuple) else [f.name for f in dataclasses.fields(a)]:
+            _assert_same_tables(getattr(a, name), getattr(b, name), f"{path}.{name}")
     elif isinstance(a, torch.Tensor):
         assert a.dtype == b.dtype and a.shape == b.shape, (path, a.dtype, b.dtype, a.shape, b.shape)
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6, atol=1e-6, err_msg=path)
