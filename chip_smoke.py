@@ -174,7 +174,34 @@ Drives the port's main path (`optix_renderer_tpu_torch`, no JAX) once:
    convolutions) and the CPU (1e-4 relative to 1 + |out|, the net's
    output being expm1 of its log-space result), both beside a float64
    result, as is the card's default TF32 call, a checkpoint written by the port reloading to the same output, and
-   `render --denoise learned` writing `_denoised.exr` / `.png`.
+   `render --denoise learned` writing `_denoised.exr` / `.png`;
+26. runs `cli test --device cuda` on four XMLs it writes: a BSDF t-test
+   (diffuse, microfacet at α 0.1 and 0.4, glass; 0, 30, 60 and 80°;
+   100,000 samples; references the phase computes: the albedo, a
+   Gauss–Legendre integral of f·cos over `eval_bsdf`, F + (1 − F)·η²), a
+   χ² test (microfacet α 0.1, resolution 10, testCount 5) and two scene
+   t-tests of a furnace whose exact mean is its albedo 0.75, flat-shaded
+   spheres of 168 triangles (`isect_brute`, exactly 64 × 2 launches) and
+   720 triangles (`isect_bvh` closest and any, 64 each); prints the
+   verdicts, means, launches and seconds, and requires rc 0; holds each
+   furnace's kernel against its plain version on the test's 100,000
+   camera rays and on rays from their hits through the sphere, closest and
+   any hit (`isect_brute` equal on every ray, `isect_bvh` by phase 7's
+   gates); times the 168-triangle furnace's 100,000 lanes at depth 2
+   against 64 (the same radiance: every lane is done after two segments);
+   and holds the card against the CPU at sample_scale 0.05 (BSDF means to
+   1e-5; each scene lane's luminance, which depends on the face its ray
+   hits, to 1e-5 absolute on all but 0.1 % of the lanes; χ² expected tables
+   to 1e-5 and observed within 0.1 % of the samples; the same verdicts);
+27. runs `warptest --device cuda` (the seven χ² cases must pass) and
+   integrates every warp pdf over its domain on the card (within 1e-3 of 1);
+28. runs `render --serve --device cuda` on the Cornell box at 800x600,
+   path_mis, depth 16, behind its loopback HTTP server: waits for 2
+   rounds, times 6 more, POSTs an emitter-radiance edit (`generation`
+   bumps, `spp_done` restarts, the frame changes), a bad edit (400),
+   pause (the count holds), resume and stop; then `tonemap` on the EXR the
+   CLI wrote; prints seconds per round and Mpaths/s, and requires
+   `isect_brute` to be the only kernel, 32 launches per round.
 
 Every phase prints its seconds and raises on failure. The second-to-last line is a JSON object with
 each kernel's route, source, launches, error, times and bound; the last line
@@ -183,14 +210,21 @@ is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
+import io
 import json
+import math
 import re
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -430,6 +464,474 @@ def device_breakdown(fn, top: int = 8, sums: tuple = ()) -> dict:
             "top_ms": {e.key[:50]: e.self_device_time_total / 1e3 for e in ev[:top]},
             **{f"{frag}_ms": sum(e.self_device_time_total for e in ev if frag in e.key) / 1e3
                for frag in sums}}
+
+
+# ---- phases 26-28: the front end (cli test, warptest, the live view)
+
+# the scene-mode t-tests' integrator depth (validation/xmltest.py raises the
+# scene's depth to at least 64) and their path_mis intersection calls per
+# bounce: the closest hit and NEE's shadow ray
+TTEST_DEPTH = 64
+TTEST_CALLS_PER_BOUNCE = 2
+
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def fresnel(cos_i: float, ext: float, int_: float) -> float:
+    """Unpolarized dielectric reflectance from outside, in float64."""
+    eta = ext / int_
+    cos_t = math.sqrt(1.0 - eta * eta * (1.0 - cos_i * cos_i))
+    rs = (ext * cos_i - int_ * cos_t) / (ext * cos_i + int_ * cos_t)
+    rp = (int_ * cos_i - ext * cos_t) / (int_ * cos_i + ext * cos_t)
+    return 0.5 * (rs * rs + rp * rp)
+
+
+def bsdf_references(bsdf_xml, angles, dev) -> list:
+    """The mean sample luminance, ∫ f·cosθo dωo, of each BSDF at each angle:
+    a gray diffuse albedo is its own; glass F + (1 − F)·(intIOR / extIOR)²
+    (reflection weighs 1, refraction 1/η²); a microfacet by the
+    Gauss–Legendre rule of `validation/xmltest.py: _gl_cell_integrals` on
+    20 × 40 cells over `eval_bsdf` on `dev`, summed in float64."""
+    from optix_renderer_tpu_torch.ops import bsdf as bsdf_ops
+    from optix_renderer_tpu_torch.scene.build import build_bsdf_table
+    from optix_renderer_tpu_torch.scene.parser import load_from_string
+    from optix_renderer_tpu_torch.validation.xmltest import _LUM, _gl_cell_integrals
+
+    nodes = [load_from_string(x) for x in bsdf_xml]
+    bsdfs, tex = (t.to(dev) for t in build_bsdf_table(nodes))
+    refs = []
+    for bi, node in enumerate(nodes):
+        for angle in angles:
+            th = math.radians(angle)
+            if node.type == "diffuse":
+                refs.append(float(node.props.get_color("albedo").astype(np.float64) @ _LUM))
+            elif node.type == "dielectric":
+                ext, int_ = (node.props.get_float("extIOR", 1.000277),
+                             node.props.get_float("intIOR", 1.5046))
+                f = fresnel(math.cos(th), ext, int_)
+                refs.append(f + (1.0 - f) * (int_ / ext) ** 2)
+            else:
+                wi = torch.tensor([math.sin(th), 0.0, math.cos(th)], device=dev)
+
+                def f_cos(dirs, bi=bi, wi=wi):
+                    m = torch.from_numpy(dirs.reshape(-1, 3).astype(np.float32)).to(dev)
+                    k = m.shape[0]
+                    f = bsdf_ops.eval_bsdf(bsdfs, tex, torch.full((k,), bi, dtype=torch.int32,
+                                                                  device=dev),
+                                           wi.expand(k, 3), m, torch.zeros((k, 2), device=dev))
+                    lum = f.cpu().numpy().astype(np.float64) @ _LUM
+                    return (lum * np.abs(dirs.reshape(-1, 3)[:, 2])).reshape(dirs.shape[:-1])
+
+                refs.append(float(_gl_cell_integrals(f_cos, 20, 40).sum()))
+    return refs
+
+
+def _captured(fn) -> tuple:
+    """(fn(), what it printed, its seconds)."""
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    return out, buf.getvalue(), time.time() - t0
+
+
+def pdf_integrals(dev) -> dict:
+    """∫ pdf over its domain, on `dev`, for each pdf `warptest` and the JAX
+    `core/warp.py` name: a midpoint rule on 900 × 450 (θ, φ) cells (θ = π/3
+    and π/2 on cell edges), and on 800 × 800 cells of the plane for the
+    square and the disk."""
+    from optix_renderer_tpu_torch.core import warp
+
+    n = 450
+    t = (np.arange(n) + 0.5) * np.pi / n
+    tt, pp = np.meshgrid(t, (np.arange(2 * n) + 0.5) * np.pi / n, indexing="ij")
+    dirs = torch.from_numpy(np.stack([np.sin(tt) * np.cos(pp), np.sin(tt) * np.sin(pp),
+                                      np.cos(tt)], -1).reshape(-1, 3).astype(np.float32)).to(dev)
+    dw = (np.sin(tt) * (np.pi / n) ** 2).reshape(-1)
+
+    def on_sphere(v):
+        return float(v.double().cpu().numpy() @ dw)
+
+    def on_plane(fn, lo, hi, m=800):
+        x = lo + (np.arange(m) + 0.5) * (hi - lo) / m
+        xx, yy = np.meshgrid(x, x, indexing="ij")
+        p = torch.from_numpy(np.stack([xx, yy], -1).reshape(-1, 2).astype(np.float32)).to(dev)
+        return float(fn(p).double().sum().cpu()) * ((hi - lo) / m) ** 2
+
+    half = torch.tensor(0.5, device=dev)
+    return {
+        "uniform_square": on_plane(warp.square_to_uniform_square_pdf, -0.5, 1.5),
+        "uniform_disk": on_plane(warp.square_to_uniform_disk_pdf, -1.5, 1.5),
+        "uniform_sphere": on_sphere(warp.square_to_uniform_sphere_pdf(dirs)),
+        "sphere_cap c=0.5": on_sphere(warp.square_to_uniform_sphere_cap_pdf(dirs, 0.5)),
+        "uniform_hemisphere": on_sphere(warp.square_to_uniform_hemisphere_pdf(dirs)),
+        "cosine_hemisphere": on_sphere(warp.square_to_cosine_hemisphere_pdf(dirs)),
+        "beckmann a=0.3": on_sphere(warp.square_to_beckmann_pdf(dirs, 0.3)),
+        "hg g=0.5": on_sphere(warp.square_to_henyey_greenstein_pdf(dirs, half)),
+        "schlick k=0.5": on_sphere(warp.square_to_schlick_pdf(dirs, half)),
+    }
+
+
+def _http(port: int, path: str, body: bytes | None = None) -> bytes:
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
+                                 method="GET" if body is None else "POST")
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return r.read()
+
+
+def _status(port: int) -> dict:
+    return json.loads(_http(port, "/status"))
+
+
+def _wait_status(port: int, cond, timeout: float = 300.0) -> tuple:
+    """(status, time.time()) at the first poll, every 100 ms, where
+    cond(status) holds; connection errors while the server starts are
+    retried. Each poll takes the interpreter lock from the render loop, a
+    host-bound launcher, so the cadence is a busy page's, not a tight loop."""
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        try:
+            st = _status(port)
+        except urllib.error.URLError:
+            time.sleep(0.1)
+            continue
+        if cond(st):
+            return st, time.time()
+        time.sleep(0.1)
+    raise AssertionError(f"live view: timed out waiting on port {port}")
+
+
+def furnace_holds(xml: Path, n: int, dev) -> float:
+    """Hold the intersection kernel that a furnace t-test launches against
+    its plain version on the card, at the test's width: its `n` camera rays,
+    drawn as `validation/xmltest.py: _scene_luminances` draws them, and from
+    their hits `n` rays in uniform directions (half cross the sphere to its
+    far side), closest hit and, cut at a uniform distance below the
+    diameter 2, any hit. `isect_brute` must equal `mt_sweep_ref` (id, t, u,
+    v) on every ray; `isect_bvh` is held by phase 7's gates against
+    `traverse_pairs_ref`. Returns max |t_kernel - t_plain|."""
+    from optix_renderer_tpu_torch.ops import bvh as bvh_ops
+    from optix_renderer_tpu_torch.ops import camera as cam_ops
+    from optix_renderer_tpu_torch.ops.cuda import isect
+    from optix_renderer_tpu_torch.scene.build import build_scene
+    from optix_renderer_tpu_torch.scene.parser import load_from_xml
+
+    sn = load_from_xml(xml).children_of("scene")[0]
+    sn.origin = str(xml.parent)
+    scene, cfg, _ = build_scene(sn)
+    scene = scene.to(dev)
+    geom = scene.geometry
+
+    def f32(x):
+        return torch.from_numpy(np.asarray(x, np.float32)).to(dev)
+
+    rng = np.random.default_rng(0)  # the draws of the test's scene 0
+    pix = rng.random((n, 2)) * np.array([cfg.width, cfg.height])
+    ray, _ = cam_ops.sample_ray(scene.camera, cfg.width, cfg.height, f32(pix),
+                                f32(rng.random((n, 2))))
+    camera = (ray.o, ray.d, ray.mint, torch.where(torch.isinf(ray.maxt), bvh_ops.BIG, ray.maxt))
+    brute = cfg.n_tris < bvh_ops.MIN_TRIS_FOR_BVH
+    tri, tree = geom.tri_table, geom.bvh
+    if brute:
+        def plain(*r, any_hit=False):
+            return isect.mt_sweep_ref(*r, tri[:, 0:3], tri[:, 3:6], tri[:, 6:9])
+    else:
+        def plain(*r, any_hit=False):
+            return bvh_ops.traverse_pairs_ref(tree.pairs, tree.leaf, *r, any_hit=any_hit)
+    first = plain(*camera)
+    p = camera[0] + camera[1] * torch.where(first[0] >= 0, first[1], 0.0)[:, None]
+    d = torch.nn.functional.normalize(f32(rng.normal(size=(n, 3))), dim=-1)
+    mint = torch.full((n,), 1e-4, device=dev)
+    sets = {"camera rays": (camera, False), "rays through the sphere": (
+        (p, d, mint, torch.full((n,), bvh_ops.BIG, device=dev)), False),
+        "cut rays through the sphere, any hit": ((p, d, mint, f32(rng.uniform(0.0, 2.0, n))),
+                                                 True)}
+    err = 0.0
+    for what, (rays, any_hit) in sets.items():
+        ref = first if what == "camera rays" else plain(*rays, any_hit=any_hit)
+        what = f"furnace {cfg.n_tris} triangles, {what}"
+        if brute:
+            got = isect.isect_brute(tri, *rays)
+            _sync(dev)
+            bad = [int((a != b).sum()) for a, b in zip(got, ref)]
+            print(f"  isect_brute, {what}: {n} rays, hits {float((ref[0] >= 0).float().mean()):.4f}"
+                  f", rays whose id, t, u, v differ from the plain version {bad}", flush=True)
+            if any(bad):
+                raise AssertionError(f"isect_brute, {what}: differs from mt_sweep_ref on {bad}")
+            err = max(err, float((got[1] - ref[1]).abs().max()))
+        else:
+            got = isect.isect_bvh(tree, *rays, any_hit=any_hit)
+            gate = gate_any if any_hit else gate_closest
+            err = max(err, gate(f"isect_bvh, {what}", got, ref))
+    if not bool((first[0] >= 0).all()):
+        raise AssertionError("a furnace camera ray missed the sphere")
+    return err
+
+
+def front_end(dev, smi: str, reset_counts, read_counts) -> dict:
+    """Phases 26-28 on `dev`; returns each phase's record, launches included."""
+    from optix_renderer_tpu_torch import cli
+    from optix_renderer_tpu_torch.integrators import get_integrator
+    from optix_renderer_tpu_torch.ops import camera as cam_ops
+    from optix_renderer_tpu_torch.render import sampler as smp
+    from optix_renderer_tpu_torch.scene import presets
+    from optix_renderer_tpu_torch.scene.build import build_scene
+    from optix_renderer_tpu_torch.scene.parser import load_from_xml
+    from optix_renderer_tpu_torch.utils.imageio import read_exr, read_png
+    from optix_renderer_tpu_torch.validation import run_xml_test
+
+    rec = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_front_") as tmp:
+        # ---- 26. cli test on the card: BSDF t-test, χ² test, scene t-tests
+        angles = (0.0, 30.0, 60.0, 80.0)
+        refs = bsdf_references(presets.TTEST_BSDFS, angles, dev)
+        xmls = {
+            "ttest_bsdf": presets.test_xml(
+                tmp, "ttest_bsdf.xml", "ttest",
+                {"angles": ", ".join(map(str, angles)),
+                 "references": ", ".join(f"{r:.7f}" for r in refs), "sampleCount": 100_000},
+                presets.TTEST_BSDFS),
+            "chi2_microfacet": presets.test_xml(
+                tmp, "chi2.xml", "chi2test", {"resolution": 10, "testCount": 5},
+                presets.TTEST_BSDFS[1:2]),
+            # the exact mean luminance of both furnaces is the albedo 0.75;
+            # 168 triangles take the brute-force sweep, 720 the LBVH walk
+            "furnace_brute": presets.test_xml(
+                tmp, "furnace_brute.xml", "ttest", {"references": "0.75", "sampleCount": 100_000},
+                [presets.furnace_scene(tmp, nu=12, nv=8)]),
+            "furnace_bvh": presets.test_xml(
+                tmp, "furnace_bvh.xml", "ttest", {"references": "0.75", "sampleCount": 100_000},
+                [presets.furnace_scene(tmp, nu=24, nv=16)]),
+        }
+        want_launches = {
+            "ttest_bsdf": {}, "chi2_microfacet": {},
+            "furnace_brute": {"isect_brute": TTEST_DEPTH * TTEST_CALLS_PER_BOUNCE},
+            "furnace_bvh": {"isect_bvh_closest": TTEST_DEPTH, "isect_bvh_any": TTEST_DEPTH}}
+        tests = {}
+        for name, xml in xmls.items():
+            reset_counts()
+            rc, out, secs = _captured(lambda: cli.main(["test", str(xml), "--device",
+                                                         str(dev.type)]))
+            ln = {k: v for k, v in read_counts().items() if v}
+            means = [float(m) for m in re.findall(r"mean=([0-9.eE+-]+)", out)]
+            tests[name] = {"rc": rc, "s": secs, "launches": ln, "means": means,
+                           "verdicts": re.findall(r"\[(PASS|FAIL)\]", out),
+                           "passed": re.findall(r"Passed \d+/\d+ tests.", out)}
+            print(f"  cli test {name} on {dev.type}, on {smi}: {json.dumps(tests[name])}",
+                  flush=True)
+            print("    " + "\n    ".join(out.strip().splitlines()), flush=True)
+            if rc != 0 or ln != want_launches[name]:
+                raise AssertionError(f"cli test {name}: rc {rc}, launches {ln}, expected "
+                                     f"{want_launches[name]}")
+        # each furnace's kernel against its plain version on the test's
+        # 100,000 lanes
+        holds = {name: furnace_holds(xmls[name], 100_000, dev)
+                 for name in ("furnace_brute", "furnace_bvh")}
+        # the furnace's lanes are all done after two segments (a convex
+        # mesh): the same 100,000 lanes at depth 64 and at depth 2 give
+        # the same luminance; the time the other 62 bounces take
+        sn = load_from_xml(xmls["furnace_brute"]).children_of("scene")[0]
+        sn.origin = str(tmp)
+        scene_f, cfg_f, _ = build_scene(sn)
+        scene_f = scene_f.to(dev)
+        r_ = np.random.default_rng(0)
+        n_f = 100_000
+        pix = torch.from_numpy((r_.random((n_f, 2)) * [cfg_f.width, cfg_f.height]).astype(
+            np.float32)).to(dev)
+        ray, wgt = cam_ops.sample_ray(scene_f.camera, cfg_f.width, cfg_f.height, pix,
+                                      torch.from_numpy(r_.random((n_f, 2)).astype(np.float32)).to(
+                                          dev))
+        depth_runs = {}
+        for depth in (2, TTEST_DEPTH):
+            cfg_d = dataclasses.replace(cfg_f, max_depth=depth)
+            li = get_integrator(cfg_d.integrator)
+            s = smp.make_sampler(torch.arange(n_f, device=dev), 0)
+            li(scene_f, cfg_d, ray, s)  # warm-up
+            reset_counts()
+            _sync(dev)
+            t0 = time.time()
+            L = li(scene_f, cfg_d, ray, s)[0]
+            _sync(dev)
+            depth_runs[depth] = {"s": time.time() - t0, "launches": {
+                k: v for k, v in read_counts().items() if v},
+                "L": (L * wgt).double().cpu().numpy()}
+        # a lane that leaves the sphere at a grazing angle from a point that
+        # rounds inside it can meet the sphere again; at most 1e-4 of them
+        differ = int((depth_runs[2]["L"] != depth_runs[TTEST_DEPTH]["L"]).any(axis=-1).sum())
+        dead = {"depth2_s": depth_runs[2]["s"], "depth64_s": depth_runs[TTEST_DEPTH]["s"],
+                "depth2_launches": depth_runs[2]["launches"],
+                "depth64_launches": depth_runs[TTEST_DEPTH]["launches"],
+                "lanes_differing": differ}
+        print(f"  furnace 168 triangles, 100,000 lanes, path_mis at depth 2 and 64 on {smi}: "
+              f"{json.dumps(dead)}", flush=True)
+        if differ > 1e-4 * n_f:
+            raise AssertionError(f"the furnace's radiance differs between depth 2 and 64 on "
+                                 f"{differ} lanes")
+        # the card against the CPU at sample_scale 0.05, the same samples
+        scale = 0.05
+        vs_cpu = {}
+        for name, xml in xmls.items():
+            a = run_xml_test(xml, verbose=False, sample_scale=scale, device=dev)
+            b = run_xml_test(xml, verbose=False, sample_scale=scale, device="cpu")
+            row = {"verdicts_equal": [m.split("]")[0] for m in a.messages]
+                   == [m.split("]")[0] for m in b.messages]}
+            if "chi2" in name:
+                row["observed_abs_diff"] = max(float(np.abs(x["observed"] - y["observed"]).sum())
+                                               for x, y in zip(a.details, b.details))
+                row["expected_max_rel"] = max(float(np.max(
+                    np.abs(x["expected"] - y["expected"]) / np.maximum(y["expected"], 1e-300)))
+                    for x, y in zip(a.details, b.details))
+                ok = row["observed_abs_diff"] <= 1e-3 * a.details[0]["observed"].sum() and \
+                    row["expected_max_rel"] <= 1e-5
+            elif name == "ttest_bsdf":
+                # BSDF samples to float32 rounding
+                row["mean_max_rel"] = max(abs(x["mean"] - y["mean"]) / abs(y["mean"])
+                                          for x, y in zip(a.details, b.details))
+                ok = row["mean_max_rel"] <= 1e-5
+            else:
+                # every lane's luminance (~0.75, set by the face its ray
+                # hits) within 1e-5 absolute on all but 0.1 % of the lanes
+                # (the rule of tests/test_torch_simple.py): a hit point
+                # can round one ulp apart on the two devices, and a
+                # grazing shadow ray from it then meets its own face on
+                # one of them only (1 lane of 5,000 in the 720-triangle
+                # furnace on an H100), while a kernel that returns a
+                # neighbouring face moves a quarter of them (on the CPU)
+                diff = np.abs(a.details[0]["lum"] - b.details[0]["lum"])
+                row.update(lanes=int(diff.size), lane_max_abs=float(diff.max()),
+                           lanes_over_1e_5=int((diff > 1e-5).sum()),
+                           mean_rel=abs(a.details[0]["mean"] - b.details[0]["mean"])
+                           / b.details[0]["mean"])
+                ok = row["lanes_over_1e_5"] <= 1e-3 * diff.size
+            vs_cpu[name] = row
+            print(f"  cli test {name} at sample_scale {scale}, {dev.type} against cpu: "
+                  f"{json.dumps(row)}", flush=True)
+            if not (ok and row["verdicts_equal"]):
+                raise AssertionError(f"cli test {name}: the card differs from the CPU: {row}")
+        rec[26] = {"tests": tests, "kernel_max_abs_err": holds, "dead_lanes": dead,
+                   "vs_cpu": vs_cpu}
+        phase(26, f"cli test on {dev.type}: {sum(t['rc'] == 0 for t in tests.values())}/"
+                  f"{len(tests)} passed; furnace launches {tests['furnace_brute']['launches']} "
+                  f"and {tests['furnace_bvh']['launches']}; the kernels match their plain "
+                  f"versions on the tests' rays and the card's lanes the cpu's")
+
+        # ---- 27. warptest on the card, and the pdfs integrate to 1
+        rc, out, secs = _captured(lambda: cli.main(["warptest", "--device", str(dev.type)]))
+        lines = [ln for ln in out.splitlines() if ln.strip()]
+        print("    " + "\n    ".join(lines), flush=True)
+        integrals = pdf_integrals(dev)
+        worst = max(abs(v - 1.0) for v in integrals.values())
+        rec[27] = {"rc": rc, "s": secs, "passed": sum(ln.startswith("PASS") for ln in lines),
+                   "pdf_integrals": integrals, "max_abs_err": worst}
+        print(f"  warptest and pdf integrals on {dev.type}, on {smi}: {json.dumps(rec[27])}",
+              flush=True)
+        if rc != 0 or rec[27]["passed"] != 7 or len(lines) != 7 or not worst <= 1e-3:
+            raise AssertionError(f"warptest: {rec[27]}")
+        phase(27, f"warptest on {dev.type}: 7/7 passed in {secs:.2f} s; the pdfs integrate to 1 "
+                  f"within {worst:.2e}")
+
+        # ---- 28. render --serve: the live view of the Cornell box at 800x600,
+        # path_mis, depth 16, behind a loopback HTTP server
+        w, h = 800, 600
+        xml = presets.cornell_box_xml(tmp, w, h, 1_000_000, "path_mis")
+        base = Path(tmp) / "live"
+        with socket.socket() as s_:
+            s_.bind(("127.0.0.1", 0))
+            port = s_.getsockname()[1]
+        rc_serve = []
+        reset_counts()
+        t_start = time.time()
+        srv = threading.Thread(target=lambda: rc_serve.append(cli.main(
+            ["render", str(xml), "--serve", "--port", str(port), "--device", str(dev.type),
+             "--depth", "16", "-o", str(base)])), daemon=True)
+        srv.start()
+        try:
+            st_a, t_a = _wait_status(port, lambda s: s["spp_done"] >= 2)
+            first_s = t_a - t_start
+            st_b, t_b = _wait_status(port, lambda s: s["spp_done"] >= st_a["spp_done"] + 6)
+            rounds = st_b["spp_done"] - st_a["spp_done"]
+            s_round = (t_b - t_a) / rounds
+            frame0 = _http(port, "/frame")
+            page = _http(port, "/")
+            if frame0[:8] != b"\x89PNG\r\n\x1a\n" or b"live view" not in page:
+                raise AssertionError("live view: no PNG frame or page")
+            before = _status(port)["spp_done"]
+            ok_edit = _http(port, "/edit", json.dumps(
+                {"kind": "emitter_radiance", "index": 0, "value": [40.0, 2.0, 2.0]}).encode())
+            st_e, _ = _wait_status(port, lambda s: s["generation"] == 1)
+            restarted = st_e["spp_done"] < before
+            st_e2, _ = _wait_status(port, lambda s: s["generation"] == 1 and s["spp_done"] >= 2)
+            frame1 = _http(port, "/frame")
+            try:
+                _http(port, "/edit", b'{"kind": "nope", "index": 0, "value": [1]}')
+                bad_refused = False
+            except urllib.error.HTTPError as e:
+                bad_refused = e.code == 400
+            _http(port, "/control", b"pause")
+            st_p, _ = _wait_status(port, lambda s: s["status"] == "paused")
+            time.sleep(1.0)
+            held = _status(port)["spp_done"] == st_p["spp_done"]
+            _http(port, "/control", b"resume")
+            _wait_status(port, lambda s: s["spp_done"] > st_p["spp_done"])
+        finally:
+            try:
+                _http(port, "/control", b"stop")
+            except urllib.error.URLError:
+                pass
+            srv.join(timeout=300)
+        ln = {k: v for k, v in read_counts().items() if v}
+        img = read_exr(str(base) + ".exr")
+        rc_t, _, _ = _captured(lambda: cli.main(["tonemap", str(base) + ".exr", "--exposure",
+                                                 "0.5"]))
+        png = read_png(str(base) + ".png")
+        mpaths = w * h / s_round / 1e6
+        # where a round's time goes: the render round alone (one chunk of
+        # w·h lanes), then the frame the loop publishes (one layer to the
+        # host, encoded as PNG), and on the card a profile of one round
+        from optix_renderer_tpu_torch.render import film as film_ops
+        from optix_renderer_tpu_torch.render.render import render_round_accumulate
+        from optix_renderer_tpu_torch.scene.build import load_scene
+        from optix_renderer_tpu_torch.utils.imageio import encode_png
+
+        scene_l, cfg_l, _ = load_scene(xml)
+        cfg_l = dataclasses.replace(cfg_l, max_depth=16)
+        scene_l = scene_l.to(dev)
+        ids = torch.arange(w * h, device=dev)
+        acc = torch.zeros((3, h, w, 4), device=dev)
+        render_round_accumulate(acc, scene_l, cfg_l, ids, 0)
+        _sync(dev)
+        t0 = time.time()
+        render_round_accumulate(acc, scene_l, cfg_l, ids, 1)
+        _sync(dev)
+        round_only_s = time.time() - t0
+        t0 = time.time()
+        encode_png(film_ops.to_bitmap(acc[0]).cpu().numpy())
+        publish_s = time.time() - t0
+        prof = device_breakdown(lambda: (render_round_accumulate(acc, scene_l, cfg_l, ids, 2),
+                                         _sync(dev)), top=4)
+        rec[28] = {"size": f"{w}x{h}", "first_round_ready_s": first_s, "s_per_round": s_round,
+                   "round_alone_s": round_only_s, "publish_s": publish_s, "profile_round": prof,
+                   "rounds_timed": rounds, "mpaths_s": mpaths, "edit": ok_edit.decode(),
+                   "generation": st_e["generation"], "spp_before_edit": before,
+                   "spp_at_generation_1": st_e["spp_done"], "restarted": restarted,
+                   "frame_changed": frame1 != frame0, "bad_edit_refused": bad_refused,
+                   "pause_held": held, "rc": rc_serve, "launches": ln,
+                   "exr_mean": float(img.mean()), "tonemap_rc": rc_t}
+        print(f"  live view, Cornell {w}x{h}, path_mis, depth 16, on {dev.type}: "
+              f"{s_round:.4f} s per round, {mpaths:.4f} Mpaths/s on {smi}; "
+              f"{json.dumps(rec[28])}", flush=True)
+        per_round = 16 * 2  # path_mis: the closest hit and NEE's shadow ray per bounce
+        if not (rc_serve == [0] and not srv.is_alive() and restarted and rec[28]["frame_changed"]
+                and bad_refused and held and rc_t == 0 and img.shape == (h, w, 3)
+                and np.isfinite(img).all() and img.mean() > 0 and png.shape == (h, w, 3)
+                and set(ln) == {"isect_brute"} and ln["isect_brute"] % per_round == 0):
+            raise AssertionError(f"live view: {rec[28]}")
+        phase(28, f"render --serve on {dev.type}: {s_round:.4f} s per round, {mpaths:.4f} "
+                  f"Mpaths/s; edit, pause, resume, stop and tonemap worked")
+    return rec
 
 
 def main() -> None:
@@ -1868,6 +2370,9 @@ def main() -> None:
     phase(25, f"denoisers: bilateral and learned on cuda match the cpu; train-denoiser "
               f"{train_s:.1f} s, loss {loss0} -> {loss1}; the CLI wrote _denoised.exr / .png")
 
+    front = front_end(dev, smi, reset_counts, read_counts)
+    fe_tests = front[26]["tests"]
+
     def row(name, source, replaces, launches, err, ms, plain_ms, bnd, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -1888,6 +2393,9 @@ def main() -> None:
                 "forward_launches"]["isect_bvh_closest"],
             launches_photon_lbvh_64x48=pm_small["lbvh_300_64x48"]["launches"][
                 "isect_bvh_closest"],
+            launches_cli_test_furnace_bvh=fe_tests["furnace_bvh"]["launches"][
+                "isect_bvh_closest"],
+            max_abs_err_cli_test_furnace_bvh=front[26]["kernel_max_abs_err"]["furnace_bvh"],
             kernel="bvh_kernel<false> (child-pair walk, persistent warps fed from a ray counter)",
             camera=bvh_rows["closest_camera"], bounce=bvh_rows["closest_bounce"],
             ms_bounce=bvh_rows["closest_bounce"]["ms"],
@@ -1899,6 +2407,7 @@ def main() -> None:
                 "forward_launches"]["isect_bvh_any"],
             launches_config_a_direct_mis=slice_runs["config_a_direct_mis"]["launches"][
                 "isect_bvh_any"],
+            launches_cli_test_furnace_bvh=fe_tests["furnace_bvh"]["launches"]["isect_bvh_any"],
             shadow=bvh_rows["any_shadow"], ptxas=bvh_regs),
         row("isect_brute", ISECT_SOURCE, "optix_renderer_tpu/ops/pallas/mxu_intersect.py:195",
             launches_b["isect_brute"], err_brute, ms_brute, plain_brute, b_brute, rays=MAIN_RAYS,
@@ -1914,6 +2423,11 @@ def main() -> None:
             launches_photon_render=pmap_counts["isect_brute"],
             launches_photon_build=build_counts["isect_brute"],
             launches_photon_cornell_48x48=pm_small["cornell_48x48"]["launches"]["isect_brute"],
+            launches_cli_test_furnace_brute=fe_tests["furnace_brute"]["launches"][
+                "isect_brute"],
+            max_abs_err_cli_test_furnace_brute=front[26]["kernel_max_abs_err"]["furnace_brute"],
+            launches_serve_cornell=front[28]["launches"]["isect_brute"],
+            serve_rounds_timed=front[28]["rounds_timed"],
             ptxas=brute_regs, instructions_per_pair=brute_loops),
         row("pathk_trace_medium", KERNEL_SOURCE, REPLACES, launches_m, err_medium, medium_ms,
             medium_plain_ms, walk_bound, branch="MXU, optix_renderer_tpu/ops/pallas/pathk.py:622",

@@ -13,9 +13,11 @@ runs the general scan path, whose intersections go through the LBVH and
 brute-force kernels of `csrc/isect.cu`. On a CUDA device the kernels
 launch; on the CPU their plain torch versions run. Gradients of an image
 loss (`parallel/shard.py: train_step`) and adaptive sampling
-(`render/adaptive.py`) run on the scan path. The package imports torch
-and numpy, never JAX, and builds its CUDA sources with `nvcc` at first
-use.
+(`render/adaptive.py`) run on the scan path. The front end: the CLI
+(`cli.py`: render, test, warptest, tonemap, train-denoiser), the
+statistical `<test>` scenes (`validation/`) and the live view
+(`serve.py`). The package imports torch, numpy and scipy, never JAX, and
+builds its CUDA sources with `nvcc` at first use.
 """
 
 __version__ = "0.2.0"

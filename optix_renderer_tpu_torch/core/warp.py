@@ -1,9 +1,10 @@
-"""Sample warps used by the BSDFs and emitters of the general path.
+"""Sample warps and their pdfs (reference warp.h:34-99, warp.cpp).
 
-The subset of `optix_renderer_tpu/core/warp.py` (reference warp.cpp) that
-`ops/bsdf.py`, `ops/emitter.py`, `ops/camera.py`, `ops/medium.py` and
-`integrators/simple.py` call; `[..., 2]` (or `[..., 3]`) uniforms in,
-batched points or directions out, and the pdfs of the phase-function warps.
+Counterpart of `optix_renderer_tpu/core/warp.py`: `[..., 2]` (or
+`[..., 3]`) uniforms in, batched points or directions out, and for every
+warp its pdf, zero off the warp's domain. The BSDFs, emitters, camera and
+media call the warps; `cli warptest` holds each warp against its pdf by a
+χ² test (`utils/hypothesis.py: chi2_sphere_test`).
 """
 
 from __future__ import annotations
@@ -13,11 +14,28 @@ import torch
 from optix_renderer_tpu_torch.core.math import EPSILON, INV_PI, PI, safe_sqrt
 
 
+def _on_sphere(v: torch.Tensor) -> torch.Tensor:
+    return torch.abs((v * v).sum(dim=-1) - 1.0) < EPSILON
+
+
+def square_to_uniform_square(s: torch.Tensor) -> torch.Tensor:
+    return s
+
+
+def square_to_uniform_square_pdf(p: torch.Tensor) -> torch.Tensor:
+    inside = ((p >= 0.0) & (p <= 1.0)).all(dim=-1)
+    return torch.where(inside, 1.0, 0.0)
+
+
 def square_to_uniform_disk(s: torch.Tensor) -> torch.Tensor:
     """Polar mapping (warp.cpp:48-52)."""
     rho = torch.sqrt(s[..., 0])
     theta = s[..., 1] * 2.0 * PI
     return torch.stack([rho * torch.cos(theta), rho * torch.sin(theta)], dim=-1)
+
+
+def square_to_uniform_disk_pdf(p: torch.Tensor) -> torch.Tensor:
+    return torch.where((p * p).sum(dim=-1) <= 1.0, INV_PI, 0.0)
 
 
 def square_to_uniform_sphere(s: torch.Tensor) -> torch.Tensor:
@@ -26,6 +44,10 @@ def square_to_uniform_sphere(s: torch.Tensor) -> torch.Tensor:
     r = safe_sqrt(1.0 - z * z)
     sigma = 2.0 * PI * s[..., 1]
     return torch.stack([r * torch.cos(sigma), r * torch.sin(sigma), z], dim=-1)
+
+
+def square_to_uniform_sphere_pdf(v: torch.Tensor) -> torch.Tensor:
+    return torch.where(_on_sphere(v), 0.25 * INV_PI, 0.0)
 
 
 def square_to_uniform_sphere_volume(s3: torch.Tensor) -> torch.Tensor:
@@ -46,10 +68,20 @@ def square_to_uniform_sphere_cap(s: torch.Tensor, cos_theta_max: torch.Tensor) -
     return torch.stack([r * torch.cos(theta), r * torch.sin(theta), z], dim=-1)
 
 
+def square_to_uniform_sphere_cap_pdf(v: torch.Tensor, cos_theta_max) -> torch.Tensor:
+    """Constant 1/(2π(1-cosθmax)) on the cap (warp.cpp:68-72)."""
+    on_cap = _on_sphere(v) & (v[..., 2] > cos_theta_max)
+    return torch.where(on_cap, 1.0 / (2.0 * PI * (1.0 - cos_theta_max)), 0.0)
+
+
 def square_to_uniform_hemisphere(s: torch.Tensor) -> torch.Tensor:
     """The uniform sphere folded onto z >= 0 (warp.py:81-83 of the JAX package)."""
     v = square_to_uniform_sphere(s)
     return torch.cat([v[..., :2], torch.abs(v[..., 2:3])], dim=-1)
+
+
+def square_to_uniform_hemisphere_pdf(v: torch.Tensor) -> torch.Tensor:
+    return torch.where(_on_sphere(v) & (v[..., 2] > 0), 0.5 * INV_PI, 0.0)
 
 
 def square_to_cosine_hemisphere(s: torch.Tensor) -> torch.Tensor:
@@ -57,6 +89,10 @@ def square_to_cosine_hemisphere(s: torch.Tensor) -> torch.Tensor:
     d = square_to_uniform_disk(s)
     z = safe_sqrt(1.0 - (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]))
     return torch.cat([d, z[..., None]], dim=-1)
+
+
+def square_to_cosine_hemisphere_pdf(v: torch.Tensor) -> torch.Tensor:
+    return torch.where(_on_sphere(v) & (v[..., 2] > 0), v[..., 2] * INV_PI, 0.0)
 
 
 def square_to_beckmann(s: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
@@ -67,6 +103,17 @@ def square_to_beckmann(s: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     cos_t = 1.0 / torch.sqrt(1.0 + tan2_theta)
     sin_t = safe_sqrt(1.0 - cos_t * cos_t)
     return torch.stack([sin_t * torch.cos(phi), sin_t * torch.sin(phi), cos_t], dim=-1)
+
+
+def square_to_beckmann_pdf(m: torch.Tensor, alpha) -> torch.Tensor:
+    """warp.cpp:152-160."""
+    ct = m[..., 2]
+    r = torch.sqrt(m[..., 0] * m[..., 0] + m[..., 1] * m[..., 1])
+    tan_theta = r / torch.where(torch.abs(ct) > 1e-20, ct, 1e-20)
+    on = _on_sphere(m) & (ct > 0)
+    pdf = torch.exp(-tan_theta * tan_theta / (alpha * alpha)) / (
+        PI * alpha * alpha * torch.clamp(ct * ct * ct, min=1e-20))
+    return torch.where(on, pdf, 0.0)
 
 
 def square_to_uniform_triangle(s: torch.Tensor) -> torch.Tensor:

@@ -14,7 +14,9 @@ the media's corner stacks and the envmap's tables (`ops/envmap.py`) as
 the JAX builder does, row for row, so both produce the same tables, and
 from 257 triangles on the LBVH tables of the general path (`ops/bvh.py`).
 A scene's `<denoiser>` lands in `RenderConfig.denoiser` / `dprops`; its
-photon map stays empty until `render.preprocess` builds it.
+photon map stays empty until `render.preprocess` builds it. The root may
+also be a `<test>` (`validation/xmltest.py` runs it); `build_bsdf_table`
+gives the tables of its `<bsdf>` children.
 """
 
 from __future__ import annotations
@@ -56,7 +58,7 @@ from optix_renderer_tpu_torch.scene.data import (
 from optix_renderer_tpu_torch.scene.parser import SceneNode, load_from_xml
 from optix_renderer_tpu_torch.utils import imageio as iio
 
-__all__ = ["SceneBuildError", "build_scene", "load_scene"]
+__all__ = ["SceneBuildError", "build_bsdf_table", "build_scene", "load_scene"]
 
 
 def _col(rows, key, dtype=torch.float32, width=None) -> torch.Tensor:
@@ -82,11 +84,8 @@ def _uv_tangents(v0, v1, v2, uv0, uv1, uv2) -> np.ndarray:
 
 class _Builder:
     def __init__(self, root: SceneNode):
-        if root.tag != "scene":
-            raise SceneBuildError(
-                f"root must be <scene>, got <{root.tag}> "
-                "(statistical <test> roots: ROADMAP Queue 1 item 14)"
-            )
+        if root.tag not in ("scene", "test"):
+            raise SceneBuildError(f"root must be <scene> or <test>, got <{root.tag}>")
         self.root = root
         self.origin = Path(root.origin or ".")
         self.tri_v, self.tri_n, self.tri_uv, self.tri_shape = [], [], [], []
@@ -136,6 +135,19 @@ class _Builder:
                                     scale_uv=p.props.get("scale", np.ones(2)),
                                     image_id=len(self.images) - 1)
         raise SceneBuildError(f"unsupported texture type '{t}'")
+
+    def bsdf_texture_tables(self) -> tuple[Bsdfs, Textures]:
+        """Finish the BSDF and texture tables (a default diffuse row when
+        there is none), for a scene build and for `build_bsdf_table`."""
+        if not self.bsdf_rows:
+            self.build_bsdf(None)
+        rows, i32 = self.bsdf_rows, torch.int32
+        bsdfs = Bsdfs(
+            type=_col(rows, "type", i32), albedo_tex=_col(rows, "albedo_tex", i32),
+            int_ior=_col(rows, "int_ior"), ext_ior=_col(rows, "ext_ior"),
+            alpha=_col(rows, "alpha"), kd=_col(rows, "kd", width=3), ks=_col(rows, "ks"),
+            disney=_col(rows, "disney", width=10))
+        return bsdfs, self.texture_table()
 
     def texture_table(self) -> Textures:
         if not self.tex_rows:
@@ -553,19 +565,7 @@ class _Builder:
         )
         envmap_emitter = max([-1] + [i for i, r in enumerate(self.em_rows)
                                      if r["type"] == EmitterType.ENVMAP])
-        if not self.bsdf_rows:
-            self.build_bsdf(None)
-        bsdfs = Bsdfs(
-            type=_col(self.bsdf_rows, "type", i32),
-            albedo_tex=_col(self.bsdf_rows, "albedo_tex", i32),
-            int_ior=_col(self.bsdf_rows, "int_ior"),
-            ext_ior=_col(self.bsdf_rows, "ext_ior"),
-            alpha=_col(self.bsdf_rows, "alpha"),
-            kd=_col(self.bsdf_rows, "kd", width=3),
-            ks=_col(self.bsdf_rows, "ks"),
-            disney=_col(self.bsdf_rows, "disney", width=10),
-        )
-        textures = self.texture_table()
+        bsdfs, textures = self.bsdf_texture_tables()
         shapes = Shapes(**{k: _col(self.shape_rows, k, i32) for k in (
             "bsdf", "emitter", "interior_medium", "exterior_medium", "normal_tex")})
 
@@ -646,3 +646,13 @@ def build_scene(root: SceneNode) -> tuple[SceneData, RenderConfig, dict]:
 def load_scene(filename) -> tuple[SceneData, RenderConfig, dict]:
     """XML file → (SceneData, RenderConfig, extras)."""
     return build_scene(load_from_xml(filename))
+
+
+def build_bsdf_table(nodes, origin=".") -> tuple[Bsdfs, Textures]:
+    """The BSDF and texture tables of a list of <bsdf> nodes, row i from
+    nodes[i], for the ttest / chi2test runners (ttest.cpp:128-134,
+    chi2test.cpp:118-124; build.py:1015 of the JAX package)."""
+    b = _Builder(SceneNode(tag="scene", type="", origin=str(origin)))
+    for n in nodes:
+        b.build_bsdf(n)
+    return b.bsdf_texture_tables()

@@ -7,6 +7,8 @@ light, spheres, media and cameras. Here each scene is written as an XML
 file with OBJ meshes (and volume grids) and loaded through `scene.build`,
 so the presets, the CLI and the tests share one path; the `make_*`
 functions write into a temporary directory that they remove again.
+`test_xml` and `furnace_scene` write statistical `<test>` scenes
+(`validation/xmltest.py`).
 """
 
 from __future__ import annotations
@@ -208,10 +210,11 @@ def medium_cornell_xml(dirpath, width: int = 800, height: int = 600, spp: int = 
     return path
 
 
-def _uv_sphere_obj(dirpath, name: str, center, radius: float, nu: int = 200, nv: int = 125) -> str:
+def _uv_sphere_obj(dirpath, name: str, center, radius: float, nu: int = 200, nv: int = 125,
+                   outward: bool = False) -> str:
     """Write a UV-sphere OBJ with 2·nu·(nv−1) triangles; returns its file name.
-    The vertex text is the JAX preset's (`_uv_sphere_obj`), so both packages
-    load the same mesh."""
+    The text is the JAX preset's (`_uv_sphere_obj`), so both packages load
+    the same mesh; its windings face inward, and `outward` reverses them."""
     th = np.linspace(0.0, np.pi, nv + 1)
     ph = np.linspace(0.0, 2.0 * np.pi, nu, endpoint=False)
     tt, pp = np.meshgrid(th, ph, indexing="ij")  # [nv+1, nu]
@@ -231,6 +234,8 @@ def _uv_sphere_obj(dirpath, name: str, center, radius: float, nu: int = 200, nv:
                 faces.append((a, b, d))
             if i < nv - 1:
                 faces.append((b, c, d))
+    if outward:
+        faces = [(f[0], f[2], f[1]) for f in faces]
     lines = ["v %f %f %f" % tuple(v) for v in verts]
     lines += ["f %d %d %d" % f for f in faces]
     fname = f"{name}.obj"
@@ -343,3 +348,49 @@ def textured_cornell_xml(dirpath, width: int = 800, height: int = 600, spp: int 
     path = dirpath / "textured_cbox.xml"
     path.write_text("\n".join(parts) + "\n")
     return path
+
+
+# the BSDFs of a BSDF-mode t-test: diffuse, microfacet at α 0.1 and 0.4
+# (kd 0.5, so ks 0.5), and the default glass
+TTEST_BSDFS = (
+    '<bsdf type="diffuse"><color name="albedo" value="0.5 0.5 0.5"/></bsdf>',
+    '<bsdf type="microfacet"><float name="alpha" value="0.1"/></bsdf>',
+    '<bsdf type="microfacet"><float name="alpha" value="0.4"/></bsdf>',
+    '<bsdf type="dielectric"/>',
+)
+
+
+def test_xml(dirpath, name: str, test_type: str, props: dict, children) -> Path:
+    """Write a statistical `<test type="ttest"|"chi2test">` XML named `name`
+    into `dirpath` (the grammar of the reference's scenes/pa*/tests) and
+    return its path. `props` maps property names to str, int or float
+    values; `children` are `<bsdf>` or `<scene>` elements as text."""
+    tags = {str: "string", int: "integer", float: "float"}
+    parts = [f'<test type="{test_type}">']
+    parts += [f'<{tags[type(v)]} name="{k}" value="{v}"/>' for k, v in props.items()]
+    parts += list(children) + ["</test>"]
+    path = Path(dirpath) / name
+    path.write_text("\n".join(parts) + "\n")
+    return path
+
+
+def furnace_scene(dirpath, nu: int, nv: int, albedo: float = 0.75, width: int = 24,
+                  height: int = 16, integrator: str = "path_mis") -> str:
+    """A `<scene>` element, as text, for a scene-mode t-test: a diffuse,
+    flat-shaded, outward-wound UV sphere of radius 1, 2·nu·(nv−1)
+    triangles (below 257 the brute-force sweep, from 257 on the LBVH walk)
+    written into `dirpath`, and gray `albedo`, that fills the whole view of
+    a camera 2.5 from its centre (fov 30), in a constant envmap of radiance
+    1. The mesh is convex, so every path leaves it after one bounce and the
+    mean luminance is exactly `albedo`; each lane's luminance depends on the
+    face it hits."""
+    bsdf = f'<bsdf type="diffuse"><color name="albedo" value="{albedo} {albedo} {albedo}"/></bsdf>'
+    fname = _uv_sphere_obj(dirpath, f"furnace_{nu}x{nv}", (0.0, 0.0, 0.0), 1.0, nu=nu, nv=nv,
+                           outward=True)
+    shapes = f'<shape type="obj"><string name="filename" value="{fname}"/>{bsdf}</shape>'
+    return (f'<scene><integrator type="{integrator}"/><camera type="perspective">'
+            f'<integer name="width" value="{width}"/><integer name="height" value="{height}"/>'
+            '<float name="fov" value="30"/><transform name="toWorld">'
+            '<lookat origin="0 0 2.5" target="0 0 0" up="0 1 0"/></transform></camera>'
+            f'{shapes}<emitter type="envmap"><color name="radiance" value="1 1 1"/></emitter>'
+            '</scene>')

@@ -26,6 +26,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import torch
+torch.set_num_threads(1)  # xdist workers share the cores: one intra-op thread each
 
 from optix_renderer_tpu.core import rng as jrng
 from optix_renderer_tpu.render.adaptive import _draw_pixels as jdraw_pixels

@@ -6,7 +6,12 @@ The denoiser runs: `render --denoise` (bilateral) and a scene's
 the scene's sigma_d / sigma_vr / min(range, 3); `--denoise learned` without
 a checkpoint warns and writes the bilateral filter's output; with one it
 writes the net's; `train-denoiser` writes a checkpoint that the JAX
-package loads."""
+package loads.
+
+The front end: `test` and `render` on a `<test>` root run the test on the
+CPU and return 0, or 1 when a reference is wrong, with the JAX package's
+messages; `tonemap` writes the PNG the JAX encoder writes for the EXR times
+`--exposure`."""
 
 import dataclasses
 import os
@@ -18,10 +23,12 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # xdist workers share the cores: one intra-op thread each
 
 from optix_renderer_tpu_torch import cli
+from optix_renderer_tpu_torch.scene import presets
 from optix_renderer_tpu_torch.scene.presets import cornell_box_xml
-from optix_renderer_tpu_torch.utils.imageio import read_exr
+from optix_renderer_tpu_torch.utils.imageio import read_exr, read_png, write_exr
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -49,8 +56,8 @@ def test_render_cuda_without_gpu_raises(tmp_path, monkeypatch):
 def test_cpu_render_does_not_import_jax(tmp_path):
     """The path kernel's plain version, small and medium branch (a
     300-triangle scene), the scan path over the LBVH (the same scene with
-    `mega=False`) and the photon mapper render, and the denoisers and the
-    CLI import, without JAX."""
+    `mega=False`) and the photon mapper render, a BSDF `<test>` runs, and
+    the denoisers, the live view and the CLI import, without JAX."""
     code = (
         "import dataclasses, sys\n"
         "from optix_renderer_tpu_torch.scene.presets import make_cornell_box\n"
@@ -71,6 +78,11 @@ def test_cpu_render_does_not_import_jax(tmp_path):
         "                        iprops=(('photonCount', 2000), ('photonRadius', 0.2)))\n"
         "out = render(s, c, sample_count=1, device='cpu')\n"
         "import optix_renderer_tpu_torch.denoise.learned, optix_renderer_tpu_torch.cli\n"
+        "import optix_renderer_tpu_torch.serve\n"
+        "from optix_renderer_tpu_torch.scene.presets import TTEST_BSDFS, test_xml\n"
+        "from optix_renderer_tpu_torch.validation import run_xml_test\n"
+        "t = test_xml('.', 't.xml', 'ttest', {'angles': '0', 'references': '0.5'}, TTEST_BSDFS[:1])\n"
+        "assert run_xml_test(t, verbose=False, sample_scale=0.01, device='cpu').ok\n"
         "assert out['composite'].mean() > 0\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'optix_renderer_tpu.')))\n"
         "assert 'optix_renderer_tpu' not in sys.modules and not bad, bad\n"
@@ -173,3 +185,45 @@ def test_train_denoiser_checkpoint_loads_in_jax(tmp_path):
     den = read_exr(str(base) + "_denoised.exr")
     assert den.shape == (8, 12, 3) and np.isfinite(den).all() and (den >= 0).all()
     assert not np.allclose(den, _bilateral_ref(base), rtol=1e-3)
+
+
+def _bsdf_test(tmp_path, references):
+    return presets.test_xml(tmp_path, "t.xml", "ttest",
+                            {"angles": "0, 60", "references": references, "sampleCount": 4000},
+                            presets.TTEST_BSDFS[::3])
+
+
+def test_test_and_render_run_test_roots(tmp_path, capsys, monkeypatch):
+    """`test` and `render` on a `<test>` root (diffuse 0.5; glass
+    F + (1 − F)·1.5046² / 1.000277²) print the JAX module's lines."""
+    from optix_renderer_tpu.validation import run_xml_test as jrun_xml_test
+
+    good = _bsdf_test(tmp_path, "0.5, 0.5, 2.211388, 2.149088")
+    assert cli.main(["test", str(good), "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    jrun_xml_test(good)
+    assert out == capsys.readouterr().out and "Passed 4/4 tests." in out
+    assert cli.main(["render", str(good), "--device", "cpu"]) == 0
+    assert "Passed 4/4 tests." in capsys.readouterr().out
+    assert not (tmp_path / "t.exr").exists()
+    bad = _bsdf_test(tmp_path, "0.5, 0.6, 2.211388, 2.149088")
+    assert cli.main(["render", str(bad), "--device", "cpu"]) == 1
+    assert cli.main(["test", str(bad), "--device", "cpu", "--sample-scale", "0.5"]) == 1
+    assert "Passed 3/4 tests." in capsys.readouterr().out
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main(["test", str(good)])
+
+
+def test_tonemap_matches_jax_encoder(tmp_path):
+    from optix_renderer_tpu.utils.imageio import encode_png as jencode_png
+
+    img = np.random.default_rng(1).random((6, 10, 4), np.float32) * 3
+    write_exr(tmp_path / "a.exr", img)
+    write_exr(tmp_path / "b.exr", img[..., :3])
+    assert cli.main(["tonemap", str(tmp_path / "a.exr"), str(tmp_path / "b.exr"),
+                     "--exposure", "0.5"]) == 0
+    (tmp_path / "j.png").write_bytes(jencode_png(img[..., :3] * 0.5))
+    want = read_png(tmp_path / "j.png")
+    for name in ("a.png", "b.png"):
+        np.testing.assert_array_equal(read_png(tmp_path / name), want)

@@ -19,6 +19,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+torch.set_num_threads(1)  # xdist workers share the cores: one intra-op thread each
 
 from optix_renderer_tpu.denoise import learned as jlearned
 from optix_renderer_tpu.denoise.bilateral import denoise_bilateral as jdenoise_bilateral

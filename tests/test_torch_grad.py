@@ -37,6 +37,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+torch.set_num_threads(1)  # xdist workers share the cores: one intra-op thread each
 
 import test_heterog as th
 from optix_renderer_tpu.ops import volume_grid as jvg

@@ -18,6 +18,7 @@ import numpy as np
 import jax
 import pytest
 import torch
+torch.set_num_threads(1)  # xdist workers share the cores: one intra-op thread each
 from PIL import Image
 
 from optix_renderer_tpu.scene import build as jbuild

@@ -21,6 +21,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+torch.set_num_threads(1)  # xdist workers share the cores: one intra-op thread each
 
 from optix_renderer_tpu.core.math import Ray as JRay
 from optix_renderer_tpu.ops import bvh as jbvh

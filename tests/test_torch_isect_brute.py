@@ -25,6 +25,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+torch.set_num_threads(1)  # xdist workers share the cores: one intra-op thread each
 
 from optix_renderer_tpu.ops.pallas.mt_kernel import _mt_jnp
 from optix_renderer_tpu_torch.core.math import Ray

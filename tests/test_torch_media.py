@@ -30,6 +30,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+torch.set_num_threads(1)  # xdist workers share the cores: one intra-op thread each
 
 from optix_renderer_tpu.core import warp as jwarp
 from optix_renderer_tpu.ops import emitter as jemitter

@@ -10,6 +10,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+torch.set_num_threads(1)  # xdist workers share the cores: one intra-op thread each
 
 from optix_renderer_tpu.ops.pallas import mega as jmega
 from optix_renderer_tpu.ops.pallas import pathk as jpathk

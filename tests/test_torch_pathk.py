@@ -13,6 +13,8 @@ import dataclasses
 import numpy as np
 import jax
 import pytest
+import torch
+torch.set_num_threads(1)  # xdist workers share the cores: one intra-op thread each
 
 from optix_renderer_tpu.ops.pallas import pathk as jpathk
 from optix_renderer_tpu.render.mega_render import render_mega

@@ -27,6 +27,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+torch.set_num_threads(1)  # xdist workers share the cores: one intra-op thread each
 
 from optix_renderer_tpu.core.math import make_frame as jmake_frame
 from optix_renderer_tpu.integrators.common import ShadingCtx as JCtx

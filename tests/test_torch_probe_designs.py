@@ -17,6 +17,7 @@ as plain torch, against the probes' plain versions on the CPU.
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # xdist workers share the cores: one intra-op thread each
 
 from optix_renderer_tpu_torch.tools import probe_copy, prof_parts
 

@@ -5,6 +5,7 @@ every output word and float must be equal."""
 import numpy as np
 import jax.numpy as jnp
 import torch
+torch.set_num_threads(1)  # xdist workers share the cores: one intra-op thread each
 
 from optix_renderer_tpu.core import rng as jrng
 from optix_renderer_tpu_torch.core import rng as trng

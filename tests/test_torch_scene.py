@@ -14,6 +14,8 @@ import dataclasses
 import numpy as np
 import jax
 import pytest
+import torch
+torch.set_num_threads(1)  # xdist workers share the cores: one intra-op thread each
 
 from optix_renderer_tpu.ops.camera import sample_to_camera_matrix as j_s2c
 from optix_renderer_tpu.ops.pallas import pathk as jpathk
@@ -120,8 +122,9 @@ def test_sample_to_camera_matrix_matches_jax():
 
 
 def test_unsupported_scenes_raise(tmp_path):
-    """What the port cannot render yet raises, naming its ROADMAP item (a
-    `<test>` root, item 14); a scene `<denoiser>`, once refused, lands in
+    """A root other than `<scene>` or `<test>` raises; a `<test>` root, once
+    refused, builds as in the JAX builder (`validation/xmltest.py` runs
+    its test); a scene `<denoiser>`, once refused, lands in
     the config with its properties, as in the JAX builder
     (tests/test_io_scene.py:162-183); a medium and a sphere-area emitter,
     once refused, now build and render on the CPU (through the scan path),
@@ -130,8 +133,14 @@ def test_unsupported_scenes_raise(tmp_path):
 
     test_root = tmp_path / "t.xml"
     test_root.write_text('<test type="ttest"><integer name="sampleCount" value="4"/></test>')
-    with pytest.raises(SceneBuildError, match="item 14"):
-        build.load_scene(test_root)
+    _, config, _ = build.load_scene(test_root)
+    _, jconfig, _ = jbuild.load_scene(test_root)
+    assert (config.width, config.height, config.integrator, config.sample_count) == (
+        jconfig.width, jconfig.height, jconfig.integrator, jconfig.sample_count)
+    bsdf_root = tmp_path / "b.xml"
+    bsdf_root.write_text('<bsdf type="diffuse"/>')
+    with pytest.raises(SceneBuildError, match="root must be <scene> or <test>"):
+        build.load_scene(bsdf_root)
     den = ('<denoiser type="simple"><float name="sigma_d" value="6.0"/>'
            '<float name="sigma_vr" value="1.5"/><integer name="range" value="7"/></denoiser>')
     _, config, _ = build.load_scene(room_xml(tmp_path, LIGHTS["point"], extra=den))

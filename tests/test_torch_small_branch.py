@@ -17,6 +17,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # xdist workers share the cores: one intra-op thread each
 
 from optix_renderer_tpu_torch.ops.cuda import pathk
 from optix_renderer_tpu_torch.scene import presets

@@ -18,6 +18,7 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # xdist workers share the cores: one intra-op thread each
 
 from optix_renderer_tpu_torch.ops import bvh
 from optix_renderer_tpu_torch.ops.cuda import pathk
