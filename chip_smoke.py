@@ -201,7 +201,34 @@ Drives the port's main path (`optix_renderer_tpu_torch`, no JAX) once:
    bumps, `spp_done` restarts, the frame changes), a bad edit (400),
    pause (the count holds), resume and stop; then `tonemap` on the EXR the
    CLI wrote; prints seconds per round and Mpaths/s, and requires
-   `isect_brute` to be the only kernel, 32 launches per round.
+   `isect_brute` to be the only kernel, 32 launches per round;
+29. drives `parallel/shard.py` on two meshes, every visible card
+   (`make_mesh()`) and four entries of cuda:0 as (2, 2): `render_sharded`
+   of the Cornell box and of config M at 800x600, depth 16, gaussian,
+   16 spp (the path kernel over pixel ranges) gives `render()`'s film bit
+   for bit with exactly one launch per mesh entry and group; `pathk_trace`
+   over pixels [0, 123,457) and [123,457, 480,000) equals one launch's
+   rows bit for bit in both branches; config B at 2 spp on the (2, 2)
+   mesh (the scan path) is within 2e-4 of `render()` with `isect_brute`
+   exactly 2 x 16 x 4; `sharded_train_step` on that mesh against
+   `train_step` on both samples of every pixel (loss within 1e-5
+   relative, each gradient within 1e-4 of its norm), timed in turns; and
+   the 512-spp Cornell bench config through `render_sharded` on every
+   card against `render()` (Mpaths/s);
+30. starts two `parallel/mh_worker.py` ranks on gloo sharing the card (2
+   entries each, a (4, 1) mesh) and holds their film (1e-5), loss and
+   gradients (1e-4) against one process's `render()` and `train_step`;
+   runs `cli scaling --device cuda` and prints its JSON (with one card the
+   efficiency is 1 by construction);
+31. holds `isect_spheres` against `traverse_spheres_ref` on a seeded soup
+   of 10,000 spheres, 480,000 camera rays and shadow rays from their hits
+   (phase 7's gates), prints its time behind a spin (the row's time) and
+   alone (torch.profiler) beside its bound (the kernel's pair rows and leaves per ray) and
+   ptxas' registers and spills of every `bvh_kernel` instance; renders an
+   80-sphere Cornell scene (`sphere_cornell_xml`) at 800x600, depth 8,
+   4 spp through `render()` with `isect_spheres` closest and any exactly
+   8 x 4 each, and at 64x48 on the card against the CPU (median
+   relative error < 1e-3, means within 10 %).
 
 Every phase prints its seconds and raises on failure. The second-to-last line is a JSON object with
 each kernel's route, source, launches, error, times and bound; the last line
@@ -464,6 +491,29 @@ def device_breakdown(fn, top: int = 8, sums: tuple = ()) -> dict:
             "top_ms": {e.key[:50]: e.self_device_time_total / 1e3 for e in ev[:top]},
             **{f"{frag}_ms": sum(e.self_device_time_total for e in ev if frag in e.key) / 1e3
                for frag in sums}}
+
+
+def device_trace(fn, sums: tuple = ()) -> dict:
+    """`device_breakdown`'s wall, busy time, event count and idle share of
+    `fn()`, from the CUDA activity alone, read from the profiler's raw
+    events: a step of 300,000 kernels traces in seconds where
+    `key_averages()` over its CPU ops takes minutes. Per name fragment of
+    `sums`, the device ms and count of the events whose name holds it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    ev = [(e.name(), e.duration_ns()) for e in prof.profiler.kineto_results.events()
+          if e.device_type() == DeviceType.CUDA]
+    busy = sum(d for _, d in ev) / 1e9
+    return {"wall_s": wall, "device_busy_s": busy, "kernels": len(ev),
+            "idle_share": 1.0 - busy / wall,
+            **{f"{frag}_ms": sum(d for n, d in ev if frag in n) / 1e6 for frag in sums},
+            **{f"{frag}_count": sum(1 for n, _ in ev if frag in n) for frag in sums}}
 
 
 # ---- phases 26-28: the front end (cli test, warptest, the live view)
@@ -934,6 +984,347 @@ def front_end(dev, smi: str, reset_counts, read_counts) -> dict:
     return rec
 
 
+# ---- phases 29-31: several devices, several ranks, the spheres' LBVH
+
+LAYERS = ("composite", "albedo", "normal", "weights")
+# pixels where phase 29 splits a launch over 800x600: neither a multiple of
+# 32 (the medium branch's pixels per warp) nor of 640 (the small branch's
+# block)
+SPLIT_PIX = 123_457
+# a sphere leaf read: four 20-byte slots (ops/bvh.py: build_sphere_tables)
+SPH_LEAF_BYTES = 80
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _films_equal(a: dict, b: dict) -> bool:
+    return all(np.array_equal(a[k], b[k]) for k in LAYERS)
+
+
+def sharded(dev, smi: str, reset_counts, read_counts) -> dict:
+    """Phase 29 on `dev`: `render_sharded` on the mesh of every visible card
+    and on four entries of `dev`, split path-kernel launches, the scan path
+    and the train step on the (2, 2) mesh; returns the phase's record."""
+    from optix_renderer_tpu_torch.ops.cuda import pathk
+    from optix_renderer_tpu_torch.parallel.shard import (
+        make_mesh,
+        render_sharded,
+        sharded_train_step,
+        train_step,
+    )
+    from optix_renderer_tpu_torch.render.mega_render import GROUP
+    from optix_renderer_tpu_torch.render.render import render
+    from optix_renderer_tpu_torch.scene.presets import make_cornell_box, make_tessellated_cornell
+
+    meshes = {"all_cards": make_mesh(), "cuda0_x4": make_mesh(devices=[dev] * 4)}
+    for name, mesh in meshes.items():
+        print(f"  mesh {name}: {mesh.shape}, entries {[str(d) for d in mesh.flat]}")
+    rec = {"meshes": {k: list(m.shape) for k, m in meshes.items()}, "kernel_path": {}}
+    box, cfg_box, _ = make_cornell_box(800, 600, 16, "path_mis")
+    cfg_box = dataclasses.replace(cfg_box, max_depth=16, rfilter="gaussian")
+    m_scene, cfg_m, _ = make_tessellated_cornell(800, 600, 16, "path_mis", nu=40, nv=51)
+    cfg_m = dataclasses.replace(cfg_m, max_depth=16, rfilter="gaussian")
+    # the kernel path: the film of render_sharded equals render()'s bit for
+    # bit, with one launch per mesh entry and group of samples
+    for cell, scene, cfg in (("cornell", box, cfg_box), ("config_m", m_scene, cfg_m)):
+        ref = render(scene, cfg, device=dev)
+        for name, mesh in meshes.items():
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = render_sharded(scene, cfg, mesh)
+            dt = time.time() - t0
+            n = read_counts()
+            want = mesh.size * -(-cfg.sample_count // GROUP)
+            err = max(float(np.abs(out[k] - ref[k]).max()) for k in LAYERS)
+            rec["kernel_path"][f"{cell}_{name}"] = {"launches": n["pathk"], "expected": want,
+                                                   "s": dt, "max_abs_err": err}
+            print(f"  render_sharded {cell} on {name}: {dt:.4f} s, {n['pathk']} path-kernel "
+                  f"launches ({want} expected), film equal to render(): {_films_equal(out, ref)}",
+                  flush=True)
+            if not (_films_equal(out, ref) and n["pathk"] == want
+                    and sum(v for k, v in n.items() if k != "pathk") == 0):
+                raise AssertionError(f"render_sharded {cell} on {name}: launches {n}, film max "
+                                     f"|diff| {err}")
+    # pathk_trace over two ranges against one launch, both branches
+    rec["split_launch"] = {}
+    for branch, scene, cfg in (("small", box, cfg_box), ("medium", m_scene, cfg_m)):
+        tables, meta = pathk.build_pathk_tables(scene, cfg, dev)
+        n_pix = cfg.width * cfg.height
+        whole = pathk.pathk_trace(tables, meta, cfg, n_pix=n_pix, spp0=0, n_spp=16)
+        parts = [pathk.pathk_trace(tables, meta, cfg, n_pix=n, spp0=0, n_spp=16, pix0=p0)
+                 for p0, n in ((0, SPLIT_PIX), (SPLIT_PIX, n_pix - SPLIT_PIX))]
+        joined = torch.cat(parts, dim=1)
+        torch.cuda.synchronize()
+        equal = torch.equal(joined, whole)
+        rec["split_launch"][branch] = {"equal": equal, "launch": pathk.last_launch()}
+        print(f"  pathk_trace {branch} branch, pixels [0, {SPLIT_PIX}) + [{SPLIT_PIX}, {n_pix}) "
+              f"against one launch: rows equal {equal}", flush=True)
+        if not equal:
+            raise AssertionError(f"{branch} branch: split rows differ on "
+                                 f"{int((joined != whole).any(0).sum())} pixels")
+    # the scan path: config B on the (2, 2) mesh of dev
+    mesh4 = meshes["cuda0_x4"]
+    cfg_b = dataclasses.replace(cfg_box, rfilter="mitchell", sample_count=2)
+    ref = render(box, cfg_b, device=dev)
+    reset_counts()
+    t0 = time.time()
+    out = render_sharded(box, cfg_b, mesh4)
+    dt = time.time() - t0
+    n = read_counts()
+    # 2 calls per bounce (closest hit, NEE shadow ray) for each of the 4
+    # entries' one 240,000-lane chunk, in 1 round of 2 samples
+    want = 2 * cfg_b.max_depth * mesh4.size
+    err = float(np.abs(out["composite"] - ref["composite"]).max())
+    rec["scan_path"] = {"launches": n["isect_brute"], "expected": want, "s": dt,
+                        "max_abs_err": err, "spp_done": out["spp_done"]}
+    print(f"  render_sharded config B 2 spp on cuda0_x4: {dt:.4f} s, isect_brute {n['isect_brute']}"
+          f" ({want} expected), composite max |diff| against render() {err:.3e}", flush=True)
+    if not (err <= 2e-4 and n["isect_brute"] == want and n["pathk"] == 0
+            and out["spp_done"] == 2):
+        raise AssertionError(f"render_sharded config B: {rec['scan_path']}, launches {n}")
+    # the train step on the (2, 2) mesh against train_step on both samples of
+    # every pixel in one film
+    cfg_t = dataclasses.replace(cfg_box, sample_count=1)
+    target = render(box, cfg_t, sample_count=1, device=dev)["composite"]
+    target = torch.from_numpy(target * 0.8)
+    ids = torch.arange(cfg_t.width * cfg_t.height)
+
+    def one_device():
+        return train_step(box, cfg_t, target, torch.cat([ids, ids]),
+                          torch.cat([torch.full_like(ids, 3), torch.full_like(ids, 4)]),
+                          device=dev)
+
+    def on_mesh():
+        return sharded_train_step(box, cfg_t, mesh4, target, ids, 3)
+
+    # timed in turns, one device, mesh, one device, mesh: a step's first call
+    # in a process also pays for the allocator's growth (to ~42 GB)
+    secs = {"one_device_s": [], "sharded_s": []}
+    for key, fn in (("one_device_s", one_device), ("sharded_s", on_mesh)) * 2:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        loss, grads = fn()
+        grads = {k: v.cpu() for k, v in grads.items()}
+        secs[key].append(time.time() - t0)
+        if key == "sharded_s":
+            loss_s, g_s = loss, grads
+        else:
+            loss_1, g_1 = loss, grads
+        del grads
+    loss_rel = abs(float(loss_s) - float(loss_1)) / abs(float(loss_1))
+    g_err = {k: float((g_s[k] - g_1[k]).abs().max() / g_1[k].norm().clamp(min=1e-30))
+             for k in g_1}
+    rec["train_step"] = {"loss_sharded": float(loss_s), "loss_one": float(loss_1),
+                         "loss_rel_err": loss_rel, "grad_err_of_norm": g_err, **secs}
+    print(f"  sharded_train_step on cuda0_x4 against train_step (both samples of 480,000 "
+          f"pixels): {json.dumps(rec['train_step'])}", flush=True)
+    if not (loss_rel <= 1e-5 and all(e <= 1e-4 for e in g_err.values())):
+        raise AssertionError(f"sharded_train_step: {rec['train_step']}")
+    del g_s, g_1
+    # where the sharded step's time goes: one traced step of each, with the
+    # device events' count, the device's busy time and idle share, and the
+    # copies (all four entries are one card, so the films' .to(first) copy
+    # nothing)
+    sums = ("Memcpy", "DtoD", "Memset")
+    traces = {"one_device": device_trace(one_device, sums),
+              "sharded": device_trace(on_mesh, sums)}
+    rec["train_step"]["trace"] = traces
+    for name, tr in traces.items():
+        print(f"  traced {name} step: {json.dumps(tr)}", flush=True)
+    torch.cuda.empty_cache()
+    # Mpaths/s of the 512-spp bench config: render_sharded on every card
+    # against render()
+    cfg_512 = dataclasses.replace(cfg_box, sample_count=512)
+    rates = {}
+    for name, fn in (("render", lambda: render(box, cfg_512, device=dev)),
+                     ("render_sharded_all_cards",
+                      lambda: render_sharded(box, cfg_512, meshes["all_cards"]))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        fn()
+        rates[name] = 800 * 600 * 512 / (time.time() - t0) / 1e6
+    rec["mpaths_512"] = rates
+    print(f"  512 spp 800x600 Cornell on {smi}: {json.dumps(rates)} Mpaths/s", flush=True)
+    phase(29, f"sharded: kernel-path films bit-equal to render() with {mesh4.size} launches per "
+              f"group on four entries, split launches equal in both branches, config B within "
+              f"{err:.1e}, the train step within {max(g_err.values()):.1e} of its norm")
+    return rec
+
+
+def multihost(dev, smi: str) -> dict:
+    """Phase 30: two mh_worker ranks on gloo sharing `dev`, against one
+    process; then `cli scaling` on the card."""
+    from optix_renderer_tpu_torch.parallel.shard import train_step
+    from optix_renderer_tpu_torch.render.render import render
+    from optix_renderer_tpu_torch.scene.presets import make_cornell_box
+
+    rec = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mh_") as tmp:
+        out = Path(tmp) / "mh.npz"
+        port = _free_port()
+        t0 = time.time()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "optix_renderer_tpu_torch.parallel.mh_worker",
+             "--coordinator", f"localhost:{port}", "--num-processes", "2", "--process-id",
+             str(i), "--local-devices", "2", "--device", dev.type, "--backend", "gloo",
+             "--out", str(out)], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for i in range(2)]
+        logs = []
+        for p in procs:
+            try:
+                logs.append(p.communicate(timeout=300)[0])
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                logs.append(p.communicate()[0])
+        for i, p in enumerate(procs):
+            print("\n".join(f"  [rank {i}] {ln}" for ln in logs[i].splitlines()
+                            if "socket" not in ln))
+            if p.returncode != 0:
+                raise AssertionError(f"mh_worker {i} exited {p.returncode}")
+        rec["workers_s"] = time.time() - t0
+        z = dict(np.load(out))
+        scaling = subprocess.run(
+            [sys.executable, "-m", "optix_renderer_tpu_torch", "scaling", "--device", dev.type,
+             "-o", str(Path(tmp) / "scaling.json")], cwd=ROOT, check=True, timeout=600,
+            capture_output=True, text=True).stdout
+    scene, cfg, _ = make_cornell_box(width=16, height=12, spp=4, integrator="path_mis")
+    cfg = dataclasses.replace(cfg, max_depth=3)
+    ref = render(scene, cfg, sample_count=4, device=dev, mega=False)
+    # render_sharded's kernel path over the two ranks' pixel ranges: the
+    # ranges are disjoint, so the film equals one process's bit for bit
+    ref_k = render(scene, cfg, sample_count=4, device=dev)
+    kernel_equal = all(np.array_equal(z[f"kernel_{k}"], ref_k[k]) for k in LAYERS)
+    loss, grads = train_step(scene, cfg, torch.zeros((12, 16, 3)), torch.arange(16 * 12), 0,
+                             device=dev)
+    film_err = float(np.abs(z["composite"] - ref["composite"]).max())
+    loss_err = abs(float(z["loss"]) - float(loss))
+    # each gradient's max |diff| over its norm, as phase 29 holds them
+    g_norm = {k: float(g.norm()) for k, g in grads.items()}
+    g_err = {k: float(np.abs(z[f"grad_{k}"] - g.cpu().numpy()).max()) / max(g_norm[k], 1e-30)
+             for k, g in grads.items()}
+    rec.update(film_max_abs_err=film_err, kernel_film_equal=kernel_equal, loss_abs_err=loss_err,
+               grad_err_of_norm=g_err, grad_norm=g_norm, n_devices=int(z["n_devices"]),
+               n_processes=int(z["n_processes"]))
+    print(f"  two gloo ranks x 2 entries of {dev}, 16x12 depth 3 4 spp, against one process: "
+          f"{json.dumps(rec)}", flush=True)
+    if not (film_err <= 1e-5 and kernel_equal and loss_err <= 1e-4
+            and all(e <= 1e-4 for e in g_err.values()) and g_norm["em_radiance"] > 0
+            and bool(z["grad_finite"]) and rec["n_processes"] == 2):
+        raise AssertionError(f"two ranks against one process: {rec}")
+    res = json.loads(scaling[scaling.index("{"):])
+    rec["scaling"] = res
+    print(f"  cli scaling --device {dev.type} on {smi}: {json.dumps(res)}")
+    print(f"  scaling efficiency {res['scaling_efficiency']} with {res['n_devices']} device: 1 "
+          "by construction on one card; a scaling number needs a machine with more cards")
+    if not (res["n_devices"] == 1 and res["scaling_efficiency"] == 1.0
+            and res["paths_per_s_1dev"] > 0):
+        raise AssertionError(f"cli scaling: {res}")
+    phase(30, f"two ranks on one card match one process (scan film {film_err:.1e}, kernel film "
+              f"equal, grads {max(g_err.values()):.1e} of their norms); cli scaling ran")
+    return rec
+
+
+def spheres(dev, smi: str, reset_counts, read_counts) -> dict:
+    """Phase 31: `isect_spheres` against its plain version on a 10,000-sphere
+    soup, its times beside its bound, and an 80-sphere scene through
+    render(); returns the phase's record."""
+    from optix_renderer_tpu_torch.ops import bvh
+    from optix_renderer_tpu_torch.ops.cuda import _build, isect
+    from optix_renderer_tpu_torch.render.render import render
+    from optix_renderer_tpu_torch.scene.build import load_scene
+    from optix_renderer_tpu_torch.scene.presets import sphere_cornell_xml
+    from optix_renderer_tpu_torch.tools.time_isect import (
+        MAIN_RAYS,
+        device_ms,
+        profiled_ms,
+        ptxas_report,
+        sphere_soup,
+    )
+
+    rng = np.random.default_rng(31)
+    tree, cam, shadow = sphere_soup(isect, dev, rng)
+    print(f"  soup: 10,000 spheres, {tree.pairs.shape[0]} pair rows, {tree.leaf.shape[0]} leaves, "
+          f"{tree.depth} levels; {MAIN_RAYS} camera and shadow rays")
+    rec = {"rays": MAIN_RAYS}
+    sets = (("closest_camera", cam, False), ("any_shadow", shadow, True))
+    for name, rays, any_hit in sets:
+        got = isect.isect_spheres(tree, *rays, any_hit=any_hit, with_visits=True)
+        ref, plain_ms = timed(lambda: bvh.traverse_spheres_ref(tree.packed, tree.leaf, *rays,
+                                                               any_hit=any_hit))
+        err = (gate_any if any_hit else gate_closest)(f"isect_spheres {name}", got[:2], ref)
+        if not any_hit:
+            same = got[0] == ref[0]
+            if not torch.equal(got[1][same], ref[1][same]):
+                raise AssertionError("isect_spheres: t differs where the ids agree")
+        vis = got[2].double()
+        rows, leaves = float(vis[0].sum()), float(vis[1].sum())
+        ops = rows * OPS_PAIR + leaves * bvh.LEAF_SIZE * OPS_SPHERE + MAIN_RAYS * OPS_RAY
+        nbytes = MAIN_RAYS * (32 + 8) + (tree.pairs.numel() + tree.leaf.numel()) * 4
+        bnd = bound(ops, nbytes)
+        # the row's time: CUDA events behind a spin (median of 7); beside it
+        # the profiler's time of the kernel alone, None where its trace holds
+        # no device event of the kernel (a whole run of this script on an
+        # H100 showed none here, after phase 30)
+        alone = profiled_ms(lambda: isect.isect_spheres(tree, *rays, any_hit=any_hit), 7,
+                            "SphLeaf") or None
+        spin = float(np.median(device_ms(
+            lambda: isect.isect_spheres(tree, *rays, any_hit=any_hit), 7)))
+        rec[name] = {"max_abs_err": err, "ms": spin, "ms_alone_profiler": alone,
+                     "plain_ms": plain_ms, "bound": bnd, "rows_per_ray": rows / MAIN_RAYS,
+                     "leaves_per_ray": leaves / MAIN_RAYS, "launch": isect.last_launch()}
+        print(f"  isect_spheres {name}: {spin:.4f} ms behind a spin, alone (torch.profiler) "
+              f"{'no device events' if alone is None else f'{alone:.4f} ms'}, "
+              f"plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms "
+              f"({bnd[1]}; {rows / MAIN_RAYS:.2f} pair rows and {leaves / MAIN_RAYS:.2f} leaves "
+              f"per ray) on {smi}", flush=True)
+    rec["ptxas"] = {k: v for k, v in ptxas_report(_build.last_build.get("ptxas", "")).items()
+                    if re.search(r"isect10bvh_kernel", k)}
+    print(f"  ptxas, bvh_kernel<ANY, LEAF>: {rec['ptxas']}")
+    # an 80-sphere scene through render(): the scan path, isect_spheres
+    # closest and any once per bounce
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sph_") as tmp:
+        scene, cfg, _ = load_scene(sphere_cornell_xml(tmp, 800, 600, 4, "path_mis"))
+        small, cfg_small, _ = load_scene(sphere_cornell_xml(tmp, 64, 48, 4, "path_mis"))
+    cfg = dataclasses.replace(cfg, max_depth=8)
+    render(scene, cfg, sample_count=1, device=dev)  # warm-up
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = render(scene, cfg, device=dev)
+    dt = time.time() - t0
+    n = read_counts()
+    want = cfg.max_depth * cfg.sample_count
+    rec["render"] = {"launches": n, "s": dt, "mpaths_s": 800 * 600 * 4 / dt / 1e6,
+                     "mean": float(out["composite"].mean())}
+    print(f"  80 spheres 800x600 path_mis depth 8, 4 spp: {dt:.4f} s, "
+          f"{rec['render']['mpaths_s']:.4f} Mpaths/s on {smi}; launches {n}", flush=True)
+    if not (n["isect_spheres_closest"] == want and n["isect_spheres_any"] == want
+            and n["isect_brute"] == 2 * want and n["pathk"] == 0
+            and np.isfinite(out["composite"]).all() and out["composite"].mean() > 0):
+        raise AssertionError(f"80-sphere render: launches {n}, expected {want} per walk")
+    cfg_small = dataclasses.replace(cfg_small, max_depth=8)
+    a = render(small, cfg_small, device=dev)["composite"]
+    b = render(small, cfg_small, device="cpu")["composite"]
+    rel = np.abs(a - b) / (np.abs(b) + 1e-3)
+    st = {"median_rel_err": float(np.median(rel)), "mean_cuda": float(a.mean()),
+          "mean_cpu": float(b.mean())}
+    rec["card_vs_cpu_64x48"] = st
+    print(f"  80 spheres 64x48, cuda against cpu: {json.dumps(st)}")
+    if not (st["median_rel_err"] < 1e-3
+            and abs(st["mean_cuda"] - st["mean_cpu"]) <= 0.1 * abs(st["mean_cpu"])):
+        raise AssertionError(f"80 spheres: the card's film differs from the CPU's: {st}")
+    phase(31, f"isect_spheres agrees with its plain version at {MAIN_RAYS} rays; the 80-sphere "
+              f"scene launched it {want} + {want} times")
+    return rec
+
+
 def main() -> None:
     # ---- 1. the card
     if not torch.cuda.is_available():
@@ -1004,7 +1395,7 @@ def main() -> None:
     lib = _build.load()
     vp = ctypes.c_void_p
     rc = lib.pathk_trace_launch(vp(0), vp(0), vp(0), vp(0), vp(0), 1, vp(0), 12, vp(0), 1,
-                                vp(0), vp(0), 0, 8, 100, 10, 0, 0, 1, 4, 1, 1, 1, 0, 0, vp(0),
+                                vp(0), vp(0), 0, 8, 0, 100, 10, 0, 0, 1, 4, 1, 1, 1, 0, 0, vp(0),
                                 vp(0))
     if rc == 0:
         raise AssertionError("the path kernel launched without its pixel counter")
@@ -1232,7 +1623,7 @@ def main() -> None:
     # rays; device time behind a spin (tools/time_isect.py: device_ms),
     # median of 7, and the pair rows read and leaves tested per ray
     bvh_regs = {k: v for k, v in ptxas_report(info.get("ptxas", "")).items()
-                if re.search(r"isect10bvh_kernel", k)}
+                if re.search(r"isect10bvh_kernelILb[01]ENS_7TriLeaf", k)}
     if len(bvh_regs) != 2:
         raise AssertionError(f"ptxas reported {len(bvh_regs)} bvh_kernel instances, not 2")
     print(f"  isect_bvh bvh_kernel<ANY>: {bvh_regs}")
@@ -1806,9 +2197,9 @@ def main() -> None:
                              ("config_v_path_vol_mis", scene_v, cfg_v)):
         mis = cfg.integrator == "path_vol_mis"
         heterog = name.startswith("config_h")
-        want = {"isect_brute": D * (9 if mis else 1), "isect_bvh_closest": 0, "isect_bvh_any": 0,
-                "delta_track": D if heterog else 0, "ratio_track": 8 * D if heterog and mis else 0,
-                "pathk": 0}
+        want = {**{k: 0 for k in (*isect.LAUNCHES, *track.LAUNCHES, "pathk")},
+                "isect_brute": D * (9 if mis else 1),
+                "delta_track": D if heterog else 0, "ratio_track": 8 * D if heterog and mis else 0}
         if pathk.pathk_eligible(scene, cfg):
             raise AssertionError(f"{name}: the path kernel took a media scene")
         out, dt, ln = media_render(scene, cfg)
@@ -2372,6 +2763,10 @@ def main() -> None:
 
     front = front_end(dev, smi, reset_counts, read_counts)
     fe_tests = front[26]["tests"]
+    shard_rec = sharded(dev, smi, reset_counts, read_counts)
+    mh_rec = multihost(dev, smi)
+    sph = spheres(dev, smi, reset_counts, read_counts)
+    kp = shard_rec["kernel_path"]
 
     def row(name, source, replaces, launches, err, ms, plain_ms, bnd, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2383,7 +2778,12 @@ def main() -> None:
             plain_ms, (pathk_bound, pathk_by), median_rel_err=stats["median_rel_err"],
             kernel="pathk_kernel<MIS> (persistent blocks, lanes that refill)",
             shape="800x600 x 16 spp", iterations=iters, launch=main_launch,
-            lane_efficiency=lane_eff, ptxas=small_regs),
+            lane_efficiency=lane_eff, ptxas=small_regs,
+            launches_sharded=kp["cornell_cuda0_x4"]["launches"],
+            max_abs_err_sharded=kp["cornell_cuda0_x4"]["max_abs_err"],
+            launches_sharded_all_cards=kp["cornell_all_cards"]["launches"],
+            split_launch_equal=shard_rec["split_launch"]["small"]["equal"],
+            mpaths_512=shard_rec["mpaths_512"]),
         row("isect_bvh_closest", ISECT_SOURCE, "optix_renderer_tpu/ops/pallas/cluster.py:454",
             launches_a["isect_bvh_closest"], err_bvh, ms_closest, plain_closest,
             bvh_rows["closest_camera"]["bound"], rays=MAIN_RAYS,
@@ -2428,14 +2828,22 @@ def main() -> None:
             max_abs_err_cli_test_furnace_brute=front[26]["kernel_max_abs_err"]["furnace_brute"],
             launches_serve_cornell=front[28]["launches"]["isect_brute"],
             serve_rounds_timed=front[28]["rounds_timed"],
-            ptxas=brute_regs, instructions_per_pair=brute_loops),
+            ptxas=brute_regs, instructions_per_pair=brute_loops,
+            launches_sharded=shard_rec["scan_path"]["launches"],
+            max_abs_err_sharded=shard_rec["scan_path"]["max_abs_err"],
+            launches_spheres_render=sph["render"]["launches"]["isect_brute"],
+            sharded_train_step=shard_rec["train_step"], multihost=mh_rec),
         row("pathk_trace_medium", KERNEL_SOURCE, REPLACES, launches_m, err_medium, medium_ms,
             medium_plain_ms, walk_bound, branch="MXU, optix_renderer_tpu/ops/pallas/pathk.py:622",
             kernel="pathk_staged_kernel<MIS> (LBVH walk, csrc/walk.cuh)",
             shape="800x600 x 16 spp", plain_shape=f"rows 0-{M_REF_ROWS - 1} of 800x600 x 16 spp",
             ms_at_plain_shape=medium_ref_ms, iterations=iters_m,
             median_rel_err=st_m["median_rel_err"], walk_ops_per_ray=walk_ray_ops,
-            old_sweep_bound_ms=sweep_bound[0], ptxas=medium_regs),
+            old_sweep_bound_ms=sweep_bound[0], ptxas=medium_regs,
+            launches_sharded=kp["config_m_cuda0_x4"]["launches"],
+            max_abs_err_sharded=kp["config_m_cuda0_x4"]["max_abs_err"],
+            launches_sharded_all_cards=kp["config_m_all_cards"]["launches"],
+            split_launch_equal=shard_rec["split_launch"]["medium"]["equal"]),
         row("probe_copy", PROBES_SOURCE, "tools/probe_mosaic.py:50", launches_pc, err_pc, pc_ms,
             pc_plain_ms, pc_bound, wrapper_ms=pc_wrapper_ms, ms_behind_spin=pc_spin_ms,
             latency_floor_ms=pc_alone["floor"], latency_floor_behind_spin_ms=floor_spin_ms,
@@ -2467,6 +2875,19 @@ def main() -> None:
           for name, line, r, ratio, shape in (
               ("delta_track", 124, delta_row, "false", "config H's 480,000 camera rays"),
               ("ratio_track", 202, ratio_row, "true", "480,000 shadow rays toward the light"))),
+        row("isect_spheres", ISECT_SOURCE, "optix_renderer_tpu/ops/bvh.py:517",
+            sph["render"]["launches"]["isect_spheres_closest"]
+            + sph["render"]["launches"]["isect_spheres_any"],
+            sph["closest_camera"]["max_abs_err"],
+            sph["closest_camera"]["ms"], sph["closest_camera"]["plain_ms"],
+            sph["closest_camera"]["bound"],
+            no_pallas_counterpart="replaces the XLA lax.while_loop of _traverse_spheres_walk",
+            kernel="bvh_kernel<ANY, SphLeaf> (the child-pair walk of isect_bvh, sphere leaves)",
+            shape=f"{sph['rays']} camera rays x 10,000 spheres, CUDA events behind a spin",
+            launches_closest=sph["render"]["launches"]["isect_spheres_closest"],
+            launches_any=sph["render"]["launches"]["isect_spheres_any"],
+            camera=sph["closest_camera"], shadow=sph["any_shadow"],
+            render=sph["render"], card_vs_cpu=sph["card_vs_cpu_64x48"], ptxas=sph["ptxas"]),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

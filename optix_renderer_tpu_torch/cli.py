@@ -10,8 +10,13 @@ CMakeLists.txt:27,147,175), with the flags this package covers and
   `--no-adaptive`) and also writes `<out>_variance.exr`. `--denoise
   [bilateral|learned]`, or a scene's `<denoiser>` without the flag
   (`simple` is the bilateral filter), also writes `<out>_denoised.exr` /
-  `.png`. `--serve` renders behind the live view (`serve.py`). A `<test>`
-  root runs its statistical test instead and returns 0 or 1;
+  `.png`. `--serve` renders behind the live view (`serve.py`).
+  `--sharded` renders over a mesh of `--local-devices` entries (default
+  every visible card; `parallel/shard.py`), `--distributed` over the
+  processes of a `torch.distributed` group (`parallel/multihost.py`; only
+  rank 0 writes files). A `<test>` root runs its statistical test instead
+  and returns 0 or 1;
+- `scaling` = paths/s on one device against the whole mesh, as JSON;
 - `test` = a `<test type="ttest"|"chi2test">` XML (`validation/xmltest.py`);
 - `tonemap` = the `tonemapper` EXR→PNG batch converter (hdrToLdr.cpp:22-40);
 - `warptest` = the χ² warp validation suite, headless (warptest.cpp:439-561);
@@ -24,11 +29,39 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import sys
 import time
 from pathlib import Path
 
 import numpy as np
+
+
+def _distributed_mesh(args):
+    """With `--distributed`, join the process group (cli.py:21-37 of the JAX
+    package) and return the global mesh of this rank's entries; else None."""
+    if not args.distributed:
+        return None
+    from optix_renderer_tpu_torch.parallel.multihost import init_distributed, make_multihost_mesh
+
+    return make_multihost_mesh(devices=init_distributed(
+        args.coordinator, args.num_processes, args.process_id, backend=args.backend,
+        device=args.device, local_devices=args.local_devices))
+
+
+def _local_mesh(args):
+    """The one-process mesh of `--sharded` / `scaling`: `--local-devices`
+    entries of a CPU device, or of every visible card (by default each
+    card once)."""
+    import torch
+
+    from optix_renderer_tpu_torch.parallel.shard import make_mesh
+    from optix_renderer_tpu_torch.render.render import resolve_device
+
+    resolve_device(args.device)
+    cards = ([torch.device("cpu")] if args.device == "cpu" else
+             [torch.device("cuda", i) for i in range(torch.cuda.device_count())])
+    return make_mesh(devices=cards * (args.local_devices or 1))
 
 
 def cmd_render(args) -> int:
@@ -39,6 +72,7 @@ def cmd_render(args) -> int:
     from optix_renderer_tpu_torch.utils import imageio as iio
 
     device = resolve_device(args.device)
+    mh_mesh = _distributed_mesh(args)
     # a <test> root executes its statistical test instead of rendering, as
     # the reference runs ttest / chi2test scene objects on load
     # (ttest.cpp:81-95)
@@ -65,10 +99,12 @@ def cmd_render(args) -> int:
 
     out_base = Path(args.output) if args.output else Path(args.scene).with_suffix("")
     adaptive = config.adaptive and not args.no_adaptive
-    if adaptive and args.serve:
-        # the live loop renders uniform rounds (serve.py); say so rather than
-        # ignore the scene's <sampler type="adaptive">
-        print("warning: adaptive sampler is ignored under --serve (uniform sampling used)")
+    if adaptive and (args.serve or args.sharded or mh_mesh):
+        # the live loop and the mesh render uniform rounds (serve.py,
+        # parallel/); say so rather than ignore the scene's
+        # <sampler type="adaptive">
+        print("warning: adaptive sampler is ignored under --sharded/--distributed/--serve "
+              "(uniform sampling used)")
         adaptive = False
     print(f"Rendering {args.scene}: {config.width}x{config.height} @ "
           f"{config.sample_count}spp, integrator={config.integrator}, device={device}"
@@ -85,6 +121,30 @@ def cmd_render(args) -> int:
         from optix_renderer_tpu_torch.serve import serve_render
 
         out = serve_render(scene, config, port=args.port, host=args.host, device=device)
+    elif mh_mesh:
+        import torch.distributed as dist
+
+        from optix_renderer_tpu_torch.parallel.multihost import render_multihost
+
+        out = render_multihost(
+            scene, config, mh_mesh, verbose=args.verbose,
+            preview_every=args.preview_every, preview_callback=preview_cb,
+            checkpoint_path=args.checkpoint, checkpoint_every=args.checkpoint_every,
+            resume=args.resume,
+        )
+        if dist.get_rank() != 0:
+            return 0  # every rank holds the film; rank 0 writes it
+    elif args.sharded:
+        from optix_renderer_tpu_torch.parallel.shard import render_sharded
+
+        mesh = _local_mesh(args)
+        print(f"  mesh {mesh.shape}: {', '.join(map(str, mesh.flat))}")
+        out = render_sharded(
+            scene, config, mesh, verbose=args.verbose,
+            preview_every=args.preview_every, preview_callback=preview_cb,
+            checkpoint_path=args.checkpoint, checkpoint_every=args.checkpoint_every,
+            resume=args.resume,
+        )
     elif adaptive:
         out = render_adaptive(scene, config, verbose=args.verbose, device=device)
     else:
@@ -183,6 +243,29 @@ def cmd_train_denoiser(args) -> int:
     return 0
 
 
+def cmd_scaling(args) -> int:
+    """Paths/s on one device against the whole mesh, as JSON (cli.py:260-282
+    of the JAX package): the mesh of `--local-devices` entries, or with
+    `--distributed` every rank's; rank 0 writes `--output`. With one device
+    the efficiency is 1 by construction: a scaling number needs more cards."""
+    from optix_renderer_tpu_torch.parallel.multihost import measure_scaling
+
+    mesh = _distributed_mesh(args) or _local_mesh(args)
+    if args.scene:
+        from optix_renderer_tpu_torch.scene.build import load_scene
+
+        scene, config, _ = load_scene(args.scene)
+    else:
+        from optix_renderer_tpu_torch.scene.presets import make_cornell_box
+
+        scene, config, _ = make_cornell_box(width=args.size, height=args.size * 3 // 4,
+                                            spp=args.spp)
+    config = dataclasses.replace(config, sample_count=args.spp)
+    res = measure_scaling(scene, config, spp=args.spp, out_path=args.output, mesh=mesh)
+    print(json.dumps(res, indent=1))
+    return 0
+
+
 def cmd_tonemap(args) -> int:
     from optix_renderer_tpu_torch.utils import imageio as iio
 
@@ -239,6 +322,23 @@ def cmd_warptest(args) -> int:
     return 1 if failures else 0
 
 
+def _add_mesh_flags(sp) -> None:
+    """The mesh and process-group flags (cli.py:328-340 of the JAX package,
+    `--local-cpu-devices` becoming `--local-devices` beside `--device`)."""
+    sp.add_argument("--local-devices", type=int, metavar="N",
+                    help="entries of this process's mesh: N CPU entries with --device cpu, "
+                    "each card N times with --device cuda (default: every card once)")
+    sp.add_argument("--distributed", action="store_true",
+                    help="render over the processes of a torch.distributed group")
+    sp.add_argument("--coordinator", help="rank 0's address, e.g. host0:9876 (without it, "
+                    "the env:// variables that torchrun sets)")
+    sp.add_argument("--num-processes", type=int)
+    sp.add_argument("--process-id", type=int)
+    sp.add_argument("--backend", choices=["nccl", "gloo"], default="nccl",
+                    help="nccl for ranks on cards of their own; gloo for CPU ranks and for "
+                    "ranks that share one card")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="optix_renderer_tpu_torch",
                                 description=__doc__.split("\n")[0])
@@ -274,8 +374,20 @@ def main(argv=None) -> int:
     pr.add_argument("--host", default="127.0.0.1",
                     help="bind address for --serve (loopback by default; the server is "
                     "unauthenticated: use 0.0.0.0 only on trusted networks)")
+    pr.add_argument("--sharded", action="store_true",
+                    help="render over a mesh of devices (--local-devices)")
     pr.add_argument("-v", "--verbose", action="store_true")
+    _add_mesh_flags(pr)
     pr.set_defaults(fn=cmd_render)
+    ps = sub.add_parser("scaling", help="measure 1-device vs full-mesh scaling efficiency")
+    ps.add_argument("--scene", help="scene XML (default: the built-in Cornell box)")
+    ps.add_argument("--spp", type=int, default=4)
+    ps.add_argument("--size", type=int, default=256)
+    ps.add_argument("-o", "--output", default="scaling.json")
+    ps.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                    help="device of the mesh's entries")
+    _add_mesh_flags(ps)
+    ps.set_defaults(fn=cmd_scaling)
     pd = sub.add_parser("train-denoiser", help="train the learned denoiser on self-rendered pairs")
     pd.add_argument("--scene", action="append",
                     help="scene XML, repeatable (default: the built-in Cornell box)")

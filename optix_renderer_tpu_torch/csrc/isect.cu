@@ -18,6 +18,16 @@
 // references. The skip-link walk of csrc/walk.cuh, one node per step in a
 // fixed left-first order, stays with the path kernel's medium branch.
 //
+// isect_spheres is the same walk, bvh_kernel<ANY, SphLeaf>, over the
+// spheres' LBVH of scenes with 65 or more spheres (ops/bvh.py:
+// build_sphere_tables): its leaf rows hold four (center, radius, id) slots,
+// tested by the stable quadratic. It replaces no Pallas kernel: the JAX
+// package walks that tree with an XLA lax.while_loop
+// (optix_renderer_tpu/ops/bvh.py:517 traverse_spheres ->
+// _traverse_spheres_walk), one gather per node per step for every ray in
+// lockstep. Its bound on this card is isect_bvh's (dependent scattered
+// loads); a leaf is 80 bytes and 4 x 39 FP32 operations.
+//
 // What bounds them on this card:
 //   * isect_bvh: dependent, scattered loads. A step cannot know its next row
 //     before this one has arrived, the few dozen FP32 operations of a step
@@ -61,6 +71,12 @@
 //         arithmetic into its own basic block. With the branch, four rays
 //         per thread ran no faster than one (PERF.md §6).
 //
+// isect_spheres' contract (plain version ops/bvh.py: traverse_spheres_ref,
+// the JAX skip-link walk): the same rays in; id [N] int32 (-1 on a miss) and
+// t [N] float32 (cutoff on a miss) out. A slot's nearer root in [mint,
+// best] is its candidate, else its farther one; it wins with a smaller t, or
+// an equal t and a smaller sphere id.
+//
 // Contract (ops/cuda/isect.py; plain versions ops/bvh.py: traverse_pairs_ref
 // and ops/cuda/isect.py: mt_sweep_ref): o, d [N,3], mint, cutoff [N] float32
 // in; id [N] int32 (-1 on a miss) and t, u, v [N] float32 out (t = cutoff,
@@ -85,6 +101,8 @@ constexpr int BRUTE_THREADS = 128;  // threads per persistent block of the sweep
 constexpr int BRUTE_RAYS = 4;   // consecutive rays per thread of the sweep
 constexpr int PAIR_COLS = 16;   // left min 3 max 3 | right min 3 max 3 | refs 2 | pad 2
 constexpr int STACK_DEPTH = 24; // ops/bvh.py: STACK_DEPTH; deeper trees are refused
+constexpr int SPH_LEAF_COLS = 20;  // LEAF_SIZE x (center 3, radius 1, id bits 1)
+constexpr float SPH_BIG = 3.4e38f;  // ops/bvh.py: BIG, a slot without a root
 
 // Rows [base, base + cnt) of tri [T, 9] as staged rows of TRI_COLS
 // floats: v0 e1 e2 and three pad columns, so that a row is three 16-byte
@@ -190,7 +208,7 @@ HD bool child_hit(const PairWalk& w, float x0, float y0, float z0, float x1, flo
   return near_ <= far_ && far_ >= w.r.mint && near_ <= w.b.t;
 }
 
-// a leaf row's four slots in order; an equal t goes to the smaller id
+// a leaf row's four triangle slots in order; an equal t goes to the smaller id
 HD void test_leaf(const float* leaf, int row_i, PairWalk& w) {
   float s[LEAF_COLS];
   const float* row = leaf + (size_t)row_i * LEAF_COLS;
@@ -207,11 +225,63 @@ HD void test_leaf(const float* leaf, int row_i, PairWalk& w) {
   }
 }
 
+// The stable quadratic of ops/bvh.py: sphere_roots, its sums taken
+// component by component in that order: the near and far roots of the ray
+// against the sphere s = center(3), radius, and whether the discriminant is
+// >= 0.
+HD bool sphere_roots(const RayIn& r, const float* s, float& tn, float& tf) {
+  const float ocx = r.ox - s[0], ocy = r.oy - s[1], ocz = r.oz - s[2];
+  const float a = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
+  const float b = 2.0f * (ocx * r.dx + ocy * r.dy + ocz * r.dz);
+  const float c = (ocx * ocx + ocy * ocy + ocz * ocz) - s[3] * s[3];
+  const float disc = b * b - 4.0f * a * c;
+  const float sq = sqrtf(fmaxf(disc, 0.0f));
+  const float sgn = b > 0.0f ? 1.0f : (b < 0.0f ? -1.0f : 0.0f);
+  const float q = -0.5f * (b + sgn * sq);
+  const float t0 = q / a;
+  const float t1 = c / (fabsf(q) > DIR_EPS ? q : DIR_EPS);
+  tn = fminf(t0, t1);
+  tf = fmaxf(t0, t1);
+  return disc >= 0.0f;
+}
+
+// The two leaf kinds of the pair walk: `test` takes a leaf row's slots into
+// w.b; UV says whether the walk stores u, v.
+struct TriLeaf {
+  static constexpr bool UV = true;
+  static HD void test(const float* leaf, int row_i, PairWalk& w) { test_leaf(leaf, row_i, w); }
+};
+
+// a leaf row's four sphere slots in order: each slot's nearer root in
+// [mint, best t], else its farther one (bvh.py:474-494), taken with a
+// smaller t or an equal t and a smaller id
+struct SphLeaf {
+  static constexpr bool UV = false;
+  static HD void test(const float* leaf, int row_i, PairWalk& w) {
+    float s[SPH_LEAF_COLS];
+    const float* row = leaf + (size_t)row_i * SPH_LEAF_COLS;
+    for (int k = 0; k < SPH_LEAF_COLS; k += 4) load4(row + k, s + k);
+    for (int j = 0; j < LEAF_SIZE; ++j) {
+      const float* slot = s + 5 * j;
+      const int pid = as_int(slot[4]);
+      float tn, tf;
+      const bool ok = sphere_roots(w.r, slot, tn, tf);
+      const float t = ok && tn >= w.r.mint && tn <= w.b.t   ? tn
+                      : ok && tf >= w.r.mint && tf <= w.b.t ? tf
+                                                            : SPH_BIG;
+      if (pid >= 0 && (t < w.b.t || (t == w.b.t && pid < w.b.id))) {
+        w.b = Best{t, 0.0f, 0.0f, pid};
+        w.found = true;
+      }
+    }
+  }
+};
+
 // One step: read a pair row and go on to the nearer child that was hit,
 // pushing the other, or test a leaf; then, if there is no child to go on
 // to, pop until an entry lies within the best t. Returns true when the
 // ray is done.
-template <bool ANY>
+template <bool ANY, class LEAF = TriLeaf>
 HD bool pair_step(const float* pairs, const float* leaf, PairWalk& w, Stack& st) {
   if (w.cur >= 0) {
     ++w.rows;
@@ -239,7 +309,7 @@ HD bool pair_step(const float* pairs, const float* leaf, PairWalk& w, Stack& st)
     }
   } else {
     ++w.leaves;
-    test_leaf(leaf, ~w.cur, w);
+    LEAF::test(leaf, ~w.cur, w);
     if (ANY && w.found) return true;
   }
   while (w.sp > 0) {
@@ -252,12 +322,15 @@ HD bool pair_step(const float* pairs, const float* leaf, PairWalk& w, Stack& st)
   return true;
 }
 
+template <bool UV = true>
 HD void pair_store(const PairWalk& w, int ray, int n, int* out_id, float* out_t, float* out_u,
                    float* out_v, int* visits) {
   out_id[ray] = w.b.id;
   out_t[ray] = w.b.t;
-  out_u[ray] = w.b.u;
-  out_v[ray] = w.b.v;
+  if (UV) {
+    out_u[ray] = w.b.u;
+    out_v[ray] = w.b.v;
+  }
   if (visits) {
     visits[ray] = w.rows;
     visits[n + ray] = w.leaves;
@@ -281,8 +354,9 @@ constexpr int LEAF_BATCH = 12;
 // with a ray) wait at a leaf, those. A warp that stepped both kinds in
 // every pass ran the 10-load leaf test in nearly every pass; a lane still
 // takes its own steps in its own order, so its result and counts are the
-// plain version's.
-template <bool ANY>
+// plain version's. LEAF: the triangle leaves of isect_bvh, or the sphere
+// leaves of isect_spheres (which stores no u, v).
+template <bool ANY, class LEAF>
 __global__ void __launch_bounds__(BVH_THREADS)
     bvh_kernel(const float* __restrict__ pairs, const float* __restrict__ leaf,
                const float* __restrict__ o, const float* __restrict__ d,
@@ -318,8 +392,8 @@ __global__ void __launch_bounds__(BVH_THREADS)
     const uint32_t at_leaf = __ballot_sync(FULL, have && w.cur < 0);
     const uint32_t at_row = __ballot_sync(FULL, have && w.cur >= 0);
     const bool leaves = __popc(at_leaf) >= LEAF_BATCH || at_row == 0;
-    if (have && (w.cur < 0) == leaves && pair_step<ANY>(pairs, leaf, w, st)) {
-      pair_store(w, ray, n, out_id, out_t, out_u, out_v, visits);
+    if (have && (w.cur < 0) == leaves && pair_step<ANY, LEAF>(pairs, leaf, w, st)) {
+      pair_store<LEAF::UV>(w, ray, n, out_id, out_t, out_u, out_v, visits);
       have = false;
     }
   }
@@ -484,17 +558,36 @@ extern "C" int isect_bvh_launch(const float* pairs, const float* leaf, const flo
   cudaStream_t s = (cudaStream_t)stream;
   if (n > 0) {
     const cudaError_t e =
-        any_hit ? launch_bvh(isect::bvh_kernel<true>, pairs, leaf, o, d, mint, cutoff, n, out_id,
-                             out_t, out_u, out_v, visits, next_ray, s)
-                : launch_bvh(isect::bvh_kernel<false>, pairs, leaf, o, d, mint, cutoff, n,
-                             out_id, out_t, out_u, out_v, visits, next_ray, s);
+        any_hit ? launch_bvh(isect::bvh_kernel<true, isect::TriLeaf>, pairs, leaf, o, d, mint,
+                             cutoff, n, out_id, out_t, out_u, out_v, visits, next_ray, s)
+                : launch_bvh(isect::bvh_kernel<false, isect::TriLeaf>, pairs, leaf, o, d, mint,
+                             cutoff, n, out_id, out_t, out_u, out_v, visits, next_ray, s);
     if (e != cudaSuccess) return (int)e;
   }
   return (int)cudaGetLastError();
 }
 
-// the grid, block size and resident blocks per SM of the last isect_bvh
-// launch
+// pairs [n_pairs, 16] and leaf [n_leaves, 20] of the spheres' LBVH; as
+// isect_bvh_launch, with id and t out (no u, v)
+extern "C" int isect_spheres_launch(const float* pairs, const float* leaf, const float* o,
+                                    const float* d, const float* mint, const float* cutoff, int n,
+                                    int any_hit, int* out_id, float* out_t, int* visits,
+                                    uint32_t* next_ray, void* stream) {
+  if (next_ray == nullptr) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n > 0) {
+    const cudaError_t e =
+        any_hit ? launch_bvh(isect::bvh_kernel<true, isect::SphLeaf>, pairs, leaf, o, d, mint,
+                             cutoff, n, out_id, out_t, nullptr, nullptr, visits, next_ray, s)
+                : launch_bvh(isect::bvh_kernel<false, isect::SphLeaf>, pairs, leaf, o, d, mint,
+                             cutoff, n, out_id, out_t, nullptr, nullptr, visits, next_ray, s);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaGetLastError();
+}
+
+// the grid, block size and resident blocks per SM of the last isect_bvh or
+// isect_spheres launch
 extern "C" void isect_bvh_last_launch(int* blocks, int* threads, int* blocks_per_sm) {
   *blocks = g_bvh_last.blocks;
   *threads = g_bvh_last.threads;

@@ -48,8 +48,11 @@
 // plain torch version's bit for bit, whichever thread runs a pixel.
 //
 // Contract (same as ops/cuda/pathk.py: pathk_trace_ref):
-//   out [16, n_pix] float32: rows 0:3 sum L, 3 samples done, 4:7 sum albedo,
-//   7:10 sum normal, 10 loop iterations of this pixel, 11:16 zero.
+//   out [16, n_pix] float32: column c holds pixel pix0 + c, the range
+//   [pix0, pix0 + n_pix) of the image (the JAX kernel's base_block; a
+//   range traced alone gives the columns of one launch over the image bit
+//   for bit); rows 0:3 sum L, 3 samples done, 4:7 sum albedo, 7:10 sum
+//   normal, 10 loop iterations of this pixel, 11:16 zero.
 // A pixel leaves its loop only when it has no active path and no pending
 // shadow ray, or after n_spp * max_depth + 2 iterations. pcg32 draws follow
 // the TPU kernel's order: seed tea(pix, (spp0 + k) ^ seed), jitter 2 +
@@ -79,7 +82,7 @@ struct Tables {
   // pdf_env: 1 / (4 pi n_lights), the MIS pdf of a constant envmap
   float n_lights, pdf_env;
   int n_pix, width, n_spp, max_depth, rfilter, use_dof;
-  uint32_t spp0, seed;
+  uint32_t pix0, spp0, seed;  // pix0: the image pixel of out's column 0
 };
 
 struct Ray {
@@ -298,7 +301,7 @@ HD isect::RayIn ray_in(V3 o, V3 d, float mint) {
 // current sample's ray, throughput and MIS state, the pending shadow ray,
 // the sums of the output rows and the counts.
 struct Pixel {
-  uint32_t pix;
+  uint32_t pix;  // the image pixel; its column of out is pix - T.pix0
   float px, py;
   Pcg32 st;
   Ray ray;
@@ -308,7 +311,7 @@ struct Pixel {
   V3 thr, sh_o, sh_d, sh_c, aL, aA, aN;
 };
 
-// take pixel `pix`: its first sample's camera ray, empty sums
+// take image pixel `pix`: its first sample's camera ray, empty sums
 HD void pixel_begin(const Tables& T, uint32_t pix, Pixel& s) {
   s.pix = pix;
   s.px = (float)(pix % (uint32_t)T.width);
@@ -336,11 +339,12 @@ HD bool pixel_live(const Tables& T, const Pixel& s) {
   return s.it < T.n_spp * T.max_depth + 2 && (s.active || s.sh_pend);
 }
 
-// the pixel's 16 output values into column s.pix of out [16, n_pix]
-HD void pixel_store(const Pixel& s, float* out, int n_pix) {
+// the pixel's 16 output values into column s.pix - pix0 of out [16, n_pix]
+HD void pixel_store(const Tables& T, const Pixel& s, float* out) {
   const float res[16] = {s.aL.x, s.aL.y, s.aL.z, s.n_done, s.aA.x, s.aA.y, s.aA.z, s.aN.x,
                          s.aN.y, s.aN.z, (float)s.it, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  for (int r = 0; r < 16; ++r) out[(size_t)r * (size_t)n_pix + s.pix] = res[r];
+  const size_t col = s.pix - T.pix0;
+  for (int r = 0; r < 16; ++r) out[(size_t)r * (size_t)T.n_pix + col] = res[r];
 }
 
 // The small branch's fused sweep of the triangle rows in row order: the
@@ -568,13 +572,13 @@ HD void bounce(const Tables& T, Pixel& s) {
   }
 }
 
-// The whole loop of one pixel, its rows into out [16, n_pix].
+// The whole loop of image pixel `pix`, its rows into out [16, n_pix].
 template <bool MIS, bool MEDIUM>
 HD void trace_pixel(const Tables& T, uint32_t pix, float* out) {
   Pixel s;
   pixel_begin(T, pix, s);
   while (pixel_live(T, s)) bounce<MIS, MEDIUM>(T, s);
-  pixel_store(s, out, T.n_pix);
+  pixel_store(T, s, out);
 }
 
 #ifdef __CUDACC__
@@ -662,9 +666,9 @@ __global__ void __launch_bounds__(SMALL_THREADS, 1)
       if ((int)lane == leader) base = atomicAdd(next_pix, (uint32_t)__popc(need));
       base = __shfl_sync(FULL, base, leader);
       if (!have && more) {
-        const uint32_t pix = base + (uint32_t)__popc(need & ((1u << lane) - 1u));
-        if (pix < n_pix) {
-          pixel_begin(S, pix, s);
+        const uint32_t c = base + (uint32_t)__popc(need & ((1u << lane) - 1u));
+        if (c < n_pix) {
+          pixel_begin(S, T.pix0 + c, s);
           have = true;
         } else {
           more = false;  // the counter only grows: no pixel is left
@@ -675,7 +679,7 @@ __global__ void __launch_bounds__(SMALL_THREADS, 1)
     if (have) {
       bounce<MIS, false>(S, s);
       if (!pixel_live(S, s)) {
-        pixel_store(s, out, T.n_pix);
+        pixel_store(S, s, out);
         have = false;
       }
     }
@@ -731,8 +735,8 @@ __global__ void __launch_bounds__(STAGED_THREADS, 1)
     if (lane == 0) base = atomicAdd(next_pix, 32u);
     base = __shfl_sync(FULL, base, 0);
     if (base >= (uint32_t)T.n_pix) break;
-    const uint32_t pix = base + lane;
-    if (pix < (uint32_t)T.n_pix) trace_pixel<MIS, true>(S, pix, out);
+    const uint32_t c = base + lane;
+    if (c < (uint32_t)T.n_pix) trace_pixel<MIS, true>(S, T.pix0 + c, out);
   }
 }
 
@@ -748,13 +752,15 @@ cudaError_t launch_staged(const Tables& T, float* out, uint32_t* next_pix, cudaS
 }  // namespace pk
 
 #ifdef __CUDACC__
+// traces pixels pix0 ... pix0 + n_pix - 1 of the image into out [16, n_pix];
 // next_pix: one uint32 that holds 0 at launch, the counter from which the
 // kernel's warps take their pixels (both branches; a null one is refused)
 extern "C" int pathk_trace_launch(float* out, const float* sf, const float* em,
                                   const float* env, const float* sph, int n_sph_rows,
                                   const float* tri, int t_cnt, const float* nodes, int n_nodes,
                                   const float* leaf, const float* et, int te_cnt, int te_pad,
-                                  int n_pix, int width, int spp0, int seed, int n_spp,
+                                  int pix0, int n_pix, int width, int spp0, int seed,
+                                  int n_spp,
                                   int max_depth, int n_emitters, int n_lights, int mis,
                                   int rfilter, int use_dof, uint32_t* next_pix,
                                   void* stream) {
@@ -775,6 +781,7 @@ extern "C" int pathk_trace_launch(float* out, const float* sf, const float* em,
   T.n_nodes = n_nodes;
   T.n_lights = (float)n_lights;
   T.pdf_env = (float)(1.0 / (4.0 * pk::PI_D) / (double)T.n_lights);
+  T.pix0 = (uint32_t)pix0;
   T.n_pix = n_pix;
   T.width = width;
   T.n_spp = n_spp;

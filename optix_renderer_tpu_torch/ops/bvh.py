@@ -24,6 +24,14 @@ boxes and references, walked nearest child first from a short stack;
 `traverse_pairs_ref` is its plain version. `replay_tri` recomputes
 (t, u, v) of the winner from the live triangle arrays (the
 detach-and-replay contract).
+
+Scenes of `MIN_SPHS_FOR_BVH` spheres or more get a second LBVH over the
+spheres (`build_sphere_tables`, bvh.py:276-297): the same builder on each
+sphere's box, leaf rows of `[n_leaves, 20]` (per slot center(3), radius,
+id bits). `traverse_spheres_ref` is the plain version of its skip-link walk
+(`_traverse_spheres_walk`, bvh.py:545-597) and of the kernel
+`csrc/isect.cu: isect_spheres`, which walks the same tree as child pairs;
+`replay_sphere` recomputes the winner's t live.
 """
 
 from __future__ import annotations
@@ -175,6 +183,33 @@ def _pack_tri_leaves(prim, v0, e1, e2, leaf_size: int) -> np.ndarray:
     return slot.reshape(n_leaves, leaf_size * 10)
 
 
+def _pack_sphere_leaves(prim, center, radius, leaf_size: int) -> np.ndarray:
+    """[n_leaves, leaf_size*5]: per slot center(3) radius(1) id bits(1).
+
+    Pad slots (id −1) are rejected by the walk's id mask; their radius is 0
+    only to keep the arithmetic finite."""
+    n_leaves = prim.shape[0] // leaf_size
+    ids = prim.reshape(n_leaves, leaf_size)
+    gid = np.maximum(ids, 0)
+    slot = np.empty((n_leaves, leaf_size, 5), np.float32)
+    slot[:, :, 0:3] = center[gid]
+    slot[:, :, 3] = np.where(ids >= 0, radius[gid], 0.0)
+    slot[:, :, 4] = ids.astype(np.int32).view(np.float32)
+    return slot.reshape(n_leaves, leaf_size * 5)
+
+
+def build_sphere_tables(center, radius) -> tuple[np.ndarray, np.ndarray]:
+    """LBVH over analytic spheres → (packed [Nn,8], leaf [n_leaves,20])
+    float32 numpy, bit for bit the JAX `build_sphere_bvh`'s tables: the
+    triangle builder on the corners (c − r, c + r, c), which span exactly
+    each sphere's box."""
+    c = np.asarray(center, np.float32)
+    r = np.asarray(radius, np.float32)
+    node_min, node_max, skip, first, prim = build_lbvh_numpy(c - r[:, None], c + r[:, None], c)
+    return (_pack_nodes(node_min, node_max, skip, first),
+            _pack_sphere_leaves(prim, c, r, LEAF_SIZE))
+
+
 def build_bvh_tables(v0, v1, v2) -> tuple[np.ndarray, np.ndarray]:
     """Host build → (packed [Nn,8], leaf [n_leaves,40]) float32 numpy."""
     v0 = np.asarray(v0, np.float32)
@@ -282,6 +317,35 @@ def replay_tri(o, d, v0, e1, e2):
     triangle arrays, with the same arithmetic as the selection."""
     t, u, v, _ = mt_lanes(o, d, v0, e1, e2)
     return t, u, v
+
+
+def sphere_roots(o, d, center, radius, disc_floor: float = 0.0):
+    """Stable quadratic of the ray–sphere test (sphere.cpp:67-124), per lane
+    (all [..., 3] / [...]) → (near t, far t, disc ≥ 0). The sums are taken
+    component by component in the order of `csrc/isect.cu: sphere_roots`,
+    so the kernel's t equal these; the discriminant is floored at
+    `disc_floor` before its square root."""
+    ocx, ocy, ocz = (o[..., k] - center[..., k] for k in range(3))
+    dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
+    a = dx * dx + dy * dy + dz * dz
+    b = 2.0 * (ocx * dx + ocy * dy + ocz * dz)
+    c = (ocx * ocx + ocy * ocy + ocz * ocz) - radius * radius
+    disc = b * b - 4.0 * a * c
+    sq = torch.sqrt(torch.clamp(disc, min=disc_floor))
+    q = -0.5 * (b + torch.sign(b) * sq)
+    t0 = q / a
+    t1 = c / torch.where(torch.abs(q) > 1e-20, q, 1e-20)
+    return torch.minimum(t0, t1), torch.maximum(t0, t1), disc >= 0.0
+
+
+def replay_sphere(o, d, center, radius, t_det):
+    """Differentiable one-sphere replay (bvh.py:497-514): the root of the
+    stable quadratic that the detached walk selected, near or far by
+    proximity to `t_det` (a discrete choice, so detached). o, d, center
+    [N,3]; radius, t_det [N] → t [N]."""
+    tn, tf, _ = sphere_roots(o, d, center, radius, disc_floor=1e-20)
+    pick_near = (torch.abs(tn - t_det) <= torch.abs(tf - t_det)).detach()
+    return torch.where(pick_near, tn, tf)
 
 
 def safe_inv_dir(d: torch.Tensor) -> torch.Tensor:
@@ -491,3 +555,75 @@ def traverse_pairs_ref(pairs, leaf, o, d, mint, cutoff, any_hit: bool = False,
     if with_visits:
         return out_id, out_t, out_u, out_v, visits
     return out_id, out_t, out_u, out_v
+
+
+def traverse_spheres_ref(packed, leaf, o, d, mint, cutoff, any_hit: bool = False,
+                         with_visits: bool = False):
+    """Plain torch skip-link walk of the sphere LBVH (`_traverse_spheres_walk`,
+    bvh.py:545-597), in lockstep as `traverse_walk_ref`.
+
+    packed [Nn,8] and leaf [n_leaves,20] (`build_sphere_tables`); o, d
+    [N,3]; mint, cutoff [N] float32. Returns (id [N] int32, −1 on a miss;
+    t [N], cutoff on a miss), plus, when `with_visits`, [2, N] int32: the
+    nodes visited and the leaves tested per ray. A leaf whose box is hit
+    takes each slot's nearer root in [mint, best t), else its farther one
+    (`sphere_roots`), all against the best t before the leaf; the first
+    slot of the least t wins, and only if its t is below the best (strict
+    <). With `any_hit` a ray stops after the leaf of its first hit.
+    """
+    n = o.shape[0]
+    dev = o.device
+    n_nodes = packed.shape[0]
+    links = packed[:, 6:8].contiguous().view(torch.int32)  # skip, first
+    out_id = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    out_t = cutoff.clone()
+    visits = torch.zeros((2, n), dtype=torch.int32, device=dev)
+
+    lane = torch.arange(n, device=dev)
+    ro, rd, rmint = o, d, mint
+    inv_d = safe_inv_dir(d)
+    node = torch.zeros(n, dtype=torch.int64, device=dev)
+    best_t, best_id = cutoff.clone(), out_id.clone()
+    found = torch.zeros(n, dtype=torch.bool, device=dev)
+    while lane.numel():
+        if with_visits:
+            visits[0, lane] += 1
+        row = packed[node]
+        skip, fi = links[node, 0].long(), links[node, 1].long()
+        hit_box = _slab(ro, inv_d, row[:, 0:3], row[:, 3:6], rmint, best_t)
+        is_leaf = fi >= 0
+        do_leaf = hit_box & is_leaf
+        if bool(do_leaf.any()):
+            k = do_leaf.nonzero().squeeze(1)
+            if with_visits:
+                visits[1, lane[k]] += 1
+            slots = leaf[fi[k] // LEAF_SIZE].reshape(-1, LEAF_SIZE, 5)
+            pids = slots[..., 4].contiguous().view(torch.int32)
+            bt = best_t[k]
+            tn, tf, ok = sphere_roots(ro[k, None], rd[k, None], slots[..., 0:3], slots[..., 3])
+            lo, hi = rmint[k, None], bt[:, None]
+            t_cand = torch.where(ok & (tn >= lo) & (tn < hi), tn,
+                                 torch.where(ok & (tf >= lo) & (tf < hi), tf, BIG))
+            t_cand = torch.where(pids >= 0, t_cand, BIG)
+            j = torch.argmin(t_cand, dim=1, keepdim=True)
+            tj = t_cand.gather(1, j).squeeze(1)
+            better = tj < bt
+            best_t[k] = torch.where(better, tj, bt)
+            best_id[k] = torch.where(better, pids.gather(1, j).squeeze(1), best_id[k])
+            found[k] = found[k] | better
+        nxt = torch.where(hit_box & ~is_leaf, node + 1, skip)
+        if any_hit:
+            nxt = torch.where(found, n_nodes, nxt)
+        done = nxt >= n_nodes
+        if bool(done.any()):
+            dl = lane[done]
+            out_t[dl], out_id[dl] = best_t[done], best_id[done]
+            keep = ~done
+            lane, node = lane[keep], nxt[keep]
+            ro, rd, rmint, inv_d = ro[keep], rd[keep], rmint[keep], inv_d[keep]
+            best_t, best_id, found = best_t[keep], best_id[keep], found[keep]
+        else:
+            node = nxt
+    if with_visits:
+        return out_id, out_t, visits
+    return out_id, out_t

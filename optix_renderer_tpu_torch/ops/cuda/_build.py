@@ -97,7 +97,7 @@ def load() -> ctypes.CDLL:
             vp, i,  # tri, t_cnt
             vp, i, vp,  # nodes, n_nodes, leaf
             vp, i, i,  # et, te_cnt, te_pad
-            i, i, i, i, i, i,  # n_pix, width, spp0, seed, n_spp, max_depth
+            i, i, i, i, i, i, i,  # pix0, n_pix, width, spp0, seed, n_spp, max_depth
             i, i,  # n_emitters, n_lights
             i, i, i,  # mis, rfilter, use_dof
             vp,  # next_pix: the kernel's uint32 pixel counter, 0 at launch
@@ -114,6 +114,14 @@ def load() -> ctypes.CDLL:
             vp,  # stream
         ]
         lib.isect_bvh_launch.restype = i
+        lib.isect_spheres_launch.argtypes = [
+            vp, vp,  # pairs, leaf [n_leaves, 20]
+            vp, vp, vp, vp, i, i,  # o, d, mint, cutoff, n, any_hit
+            vp, vp, vp,  # out id, t, visits (or null)
+            vp,  # next_ray: the kernel's uint32 ray counter, 0 at launch
+            vp,  # stream
+        ]
+        lib.isect_spheres_launch.restype = i
         lib.isect_bvh_last_launch.argtypes = [vp] * 3  # int* blocks, threads, per SM
         lib.isect_bvh_last_launch.restype = None
         lib.isect_brute_launch.argtypes = [

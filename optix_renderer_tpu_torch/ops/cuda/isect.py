@@ -16,7 +16,17 @@ in `csrc/isect.cu` take their place:
   triangle; plain version `mt_sweep_ref` below.
 
 Both take o, d [N,3] and mint, cutoff [N] float32 and return (id [N] int32,
-−1 on a miss; t, u, v [N] float32; t = cutoff on a miss). Both refuse
+−1 on a miss; t, u, v [N] float32; t = cutoff on a miss).
+
+* `isect_spheres` — the same pair walk over the spheres' LBVH (scenes of
+  `MIN_SPHS_FOR_BVH` spheres or more; `csrc/isect.cu: bvh_kernel<ANY,
+  SphLeaf>`), which no Pallas kernel had: the JAX package walks it with an
+  XLA `lax.while_loop` (`optix_renderer_tpu/ops/bvh.py:517`). Returns (id,
+  t); plain version `ops/bvh.py: traverse_spheres_ref`, the JAX skip-link
+  walk, whose visit order differs, so an exact tie in t may go to another
+  sphere.
+
+All three refuse
 tensors that require grad (`refuse_graph`): the caller detaches them and
 replays the winner (`ops/intersect.py`). A CPU tensor runs
 the plain version; a CUDA tensor launches the kernel or raises. Each wrapper
@@ -35,11 +45,13 @@ from optix_renderer_tpu_torch.ops.bvh import (
     STACK_DEPTH,
     mt_lanes,
     traverse_pairs_ref,
+    traverse_spheres_ref,
 )
 from optix_renderer_tpu_torch.ops.cuda import _build
 
 # kernel launches by the wrappers (not by the plain versions)
-LAUNCHES = {"isect_bvh_closest": 0, "isect_bvh_any": 0, "isect_brute": 0}
+LAUNCHES = {"isect_bvh_closest": 0, "isect_bvh_any": 0, "isect_brute": 0,
+            "isect_spheres_closest": 0, "isect_spheres_any": 0}
 
 # ray-triangle pairs per step of the plain sweep (bounds its [N, chunk] temporaries)
 _SWEEP_PAIRS = 1 << 22
@@ -137,6 +149,58 @@ def _launch(entry: str, name: str, *args, device):
     LAUNCHES[name] += 1
 
 
+def _check_depth(bvh):
+    if bvh.depth > STACK_DEPTH:
+        raise ValueError(f"the LBVH has {bvh.depth} levels, deeper than the pair walk's stack "
+                         f"of {STACK_DEPTH} entries")
+
+
+def _check_tree(bvh, leaf_cols: int, device):
+    for name, x, cols in (("pairs", bvh.pairs, PAIR_COLS), ("leaf", bvh.leaf, leaf_cols)):
+        if (x.dim() != 2 or x.shape[1] != cols or x.dtype != torch.float32
+                or x.device != device or not x.is_contiguous() or x.data_ptr() % 16):
+            raise ValueError(f"{name} must be a contiguous, 16-byte aligned float32 "
+                             f"[rows, {cols}] tensor on {device}")
+    if not 0 < bvh.pairs.shape[0] < 2**31:
+        raise ValueError("the LBVH must have between 1 and 2^31 - 1 pair rows")
+
+
+def isect_spheres(sph_bvh, o, d, mint, cutoff, any_hit: bool = False,
+                  with_visits: bool = False):
+    """Closest (or any) hit of the rays against the spheres' LBVH.
+
+    sph_bvh: the scene's `Geometry.sph_bvh` (`packed` [Nn, 8], `pairs`
+    [n_pairs, 16], `leaf` [n_leaves, 20] float32). Returns (id [N] int32,
+    −1 on a miss; t [N] float32, cutoff on a miss), plus, when
+    `with_visits`, [2, N] int32: on the card the pair rows read and the
+    leaves tested per ray, on the CPU the plain walk's nodes and leaves.
+    A CPU tensor runs `traverse_spheres_ref`; a CUDA tensor launches
+    `bvh_kernel<ANY, SphLeaf>` or raises.
+    """
+    refuse_graph("isect_spheres", sph_bvh.packed, sph_bvh.pairs, sph_bvh.leaf, o, d, mint,
+                 cutoff)
+    if o.device.type == "cpu":
+        return traverse_spheres_ref(sph_bvh.packed, sph_bvh.leaf, o, d, mint, cutoff, any_hit,
+                                    with_visits)
+    if o.device.type != "cuda":
+        raise ValueError(f"isect_spheres runs on cpu or cuda tensors, got {o.device}")
+    _check_rays(o, d, mint, cutoff)
+    _check_depth(sph_bvh)
+    _check_tree(sph_bvh, 20, o.device)
+    o, d, mint, cutoff = (x.contiguous() for x in (o, d, mint, cutoff))
+    n = o.shape[0]
+    out = _outputs(n, o.device)[:2]
+    visits = torch.empty((2, n), dtype=torch.int32, device=o.device) if with_visits else None
+    if n == 0:
+        return (*out, visits) if with_visits else out
+    next_ray = torch.zeros(1, dtype=torch.int32, device=o.device)
+    _launch("isect_spheres_launch", "isect_spheres_any" if any_hit else "isect_spheres_closest",
+            _ptr(sph_bvh.pairs), _ptr(sph_bvh.leaf), _ptr(o), _ptr(d), _ptr(mint), _ptr(cutoff),
+            n, int(any_hit), *(_ptr(x) for x in out), _ptr(visits), _ptr(next_ray),
+            device=o.device)
+    return (*out, visits) if with_visits else out
+
+
 def isect_bvh(bvh, o, d, mint, cutoff, any_hit: bool = False, with_visits: bool = False):
     """Closest (or any) hit of the rays against the LBVH.
 
@@ -147,9 +211,7 @@ def isect_bvh(bvh, o, d, mint, cutoff, any_hit: bool = False, with_visits: bool 
     so its (id, t) is *a* hit in [mint, cutoff), not the nearest. Raises for
     a tree deeper than the walk's stack (`ops/bvh.py: STACK_DEPTH`).
     """
-    if bvh.depth > STACK_DEPTH:
-        raise ValueError(f"the LBVH has {bvh.depth} levels, deeper than the pair walk's stack "
-                         f"of {STACK_DEPTH} entries")
+    _check_depth(bvh)
     pairs, leaf = bvh.pairs, bvh.leaf
     refuse_graph("isect_bvh", pairs, leaf, o, d, mint, cutoff)
     if o.device.type == "cpu":
@@ -157,13 +219,7 @@ def isect_bvh(bvh, o, d, mint, cutoff, any_hit: bool = False, with_visits: bool 
     if o.device.type != "cuda":
         raise ValueError(f"isect_bvh runs on cpu or cuda tensors, got {o.device}")
     _check_rays(o, d, mint, cutoff)
-    for name, x, cols in (("pairs", pairs, PAIR_COLS), ("leaf", leaf, 40)):
-        if (x.dim() != 2 or x.shape[1] != cols or x.dtype != torch.float32
-                or x.device != o.device or not x.is_contiguous() or x.data_ptr() % 16):
-            raise ValueError(f"{name} must be a contiguous, 16-byte aligned float32 "
-                             f"[rows, {cols}] tensor on {o.device}")
-    if not 0 < pairs.shape[0] < 2**31:
-        raise ValueError("the LBVH must have between 1 and 2^31 - 1 pair rows")
+    _check_tree(bvh, 40, o.device)
     o, d, mint, cutoff = (x.contiguous() for x in (o, d, mint, cutoff))
     n = o.shape[0]
     out = _outputs(n, o.device)

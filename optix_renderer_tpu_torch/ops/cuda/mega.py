@@ -39,7 +39,7 @@ EM_AREA = 2
 EM_ENVMAP = 3
 EM_DIRECTIONAL = 4
 
-MAX_SPHERES = 64  # above this, spheres need the LBVH (ROADMAP Queue 1 item 7)
+MAX_SPHERES = 64  # above this, the scan path walks the spheres' LBVH (isect_spheres)
 MAX_MXU_TRIS = 8192  # the JAX kernel's largest triangle count
 
 # emissive-triangle rows [TE, ET_COLS]
@@ -156,10 +156,12 @@ def mega_unsupported(scene, config) -> str | None:
         return "a scene without triangles takes the scan path"
     if t_cnt > MAX_MXU_TRIS:
         return (f"{t_cnt} triangles > {MAX_MXU_TRIS}: the path kernel's LBVH walk takes scenes up "
-                f"to {MAX_MXU_TRIS} (larger ones in the kernel are ROADMAP Queue 1 item 7)")
+                f"to {MAX_MXU_TRIS}, as the JAX kernel does (larger ones in the kernel are "
+                "ROADMAP 'Next' 3)")
     n_sph = int(g.sph_center.shape[0])
     if n_sph > MAX_SPHERES:
-        return f"more than {MAX_SPHERES} spheres need the LBVH: ROADMAP Queue 1 item 7"
+        return (f"more than {MAX_SPHERES} spheres take the scan path, whose spheres' LBVH walk "
+                "(isect_spheres) the path kernel lacks, as the JAX kernel does")
     if n_sph and np.any(npy(scene.shapes.emitter)[npy(g.sph_shape)] >= 0):
         return "sphere-area emitters take the scan path"
     if config.integrator not in ("path_mis", "path_mats"):

@@ -475,8 +475,9 @@ def _nee_sample_smem(em, et, env, n_emitters, te_cnt, p_hit, st, medium=False):
 # ---------------------------------------------------------------------------
 
 
-def pathk_trace_ref(tables, meta, config, *, n_pix, spp0, n_spp):
-    """Plain torch version of the path kernel over pixels [0, n_pix).
+def pathk_trace_ref(tables, meta, config, *, n_pix, spp0, n_spp, pix0=0):
+    """Plain torch version of the path kernel over pixels [pix0, pix0 + n_pix)
+    of the image (column c holds pixel pix0 + c).
 
     Every lane runs the kernel's per-pixel loop; lanes that have finished
     (no active path, no pending shadow ray) stay in the batch but add
@@ -494,7 +495,7 @@ def pathk_trace_ref(tables, meta, config, *, n_pix, spp0, n_spp):
     dev = em.device
     f32 = torch.float32
 
-    pix = torch.arange(n_pix, dtype=torch.int64, device=dev)
+    pix = torch.arange(pix0, pix0 + n_pix, dtype=torch.int64, device=dev)
     px = (pix % config.width).to(f32)
     py = (pix // config.width).to(f32)
     zero = torch.zeros(n_pix, dtype=f32, device=dev)
@@ -721,19 +722,22 @@ def _check_tables(tables, meta, device):
                          f"{tables['leaf'].shape[0]} rows for {t_cnt} triangles")
 
 
-def _check_sizes(config, n_pix, spp0, n_spp):
+def _check_sizes(config, n_pix, spp0, n_spp, pix0=0):
     """The C interface takes 32-bit ints; ctypes would truncate silently."""
     limit = 2**31 - 1
-    if not (0 <= n_pix <= limit and 0 < config.width <= limit and 0 <= n_spp
-            and n_spp * config.max_depth + 2 <= limit and 0 <= spp0 <= limit
+    if not (0 <= n_pix and 0 <= pix0 and pix0 + n_pix <= limit and 0 < config.width <= limit
+            and 0 <= n_spp and n_spp * config.max_depth + 2 <= limit and 0 <= spp0 <= limit
             and 0 < config.max_depth and -2**31 <= config.seed <= limit):
-        raise ValueError(f"pathk_trace sizes out of range: n_pix={n_pix}, width={config.width}, "
-                         f"spp0={spp0}, n_spp={n_spp}, max_depth={config.max_depth}, "
-                         f"seed={config.seed}")
+        raise ValueError(f"pathk_trace sizes out of range: pix0={pix0}, n_pix={n_pix}, "
+                         f"width={config.width}, spp0={spp0}, n_spp={n_spp}, "
+                         f"max_depth={config.max_depth}, seed={config.seed}")
 
 
-def pathk_trace(tables, meta, config, *, n_pix, spp0, n_spp):
-    """Trace `n_spp` samples (from sample index `spp0`) for pixels [0, n_pix).
+def pathk_trace(tables, meta, config, *, n_pix, spp0, n_spp, pix0=0):
+    """Trace `n_spp` samples (from sample index `spp0`) for pixels
+    [pix0, pix0 + n_pix) of the image: column c of the result holds pixel
+    pix0 + c, bit for bit the column pix0 + c of a launch over the whole
+    image (the JAX kernel's `base_block`, here any run of pixels).
 
     CPU tables run the plain version; CUDA tables launch a kernel of
     `csrc/pathk.cu` on the current stream (`pathk_kernel<MIS>` up to
@@ -743,11 +747,12 @@ def pathk_trace(tables, meta, config, *, n_pix, spp0, n_spp):
     global LAUNCHES
     device = tables["em_rows"].device
     if device.type == "cpu":
-        return pathk_trace_ref(tables, meta, config, n_pix=n_pix, spp0=spp0, n_spp=n_spp)
+        return pathk_trace_ref(tables, meta, config, n_pix=n_pix, spp0=spp0, n_spp=n_spp,
+                               pix0=pix0)
     if device.type != "cuda":
         raise ValueError(f"pathk_trace runs on cpu or cuda tensors, got {device}")
     _check_tables(tables, meta, device)
-    _check_sizes(config, n_pix, spp0, n_spp)
+    _check_sizes(config, n_pix, spp0, n_spp, pix0)
     if config.rfilter not in FILTERS:
         raise ValueError(f"filter '{config.rfilter}' cannot be importance-sampled")
     from optix_renderer_tpu_torch.ops.cuda import _build
@@ -766,7 +771,7 @@ def pathk_trace(tables, meta, config, *, n_pix, spp0, n_spp):
             ptr(tables["tri"]), meta["t_cnt"],
             ptr(tables["packed"]), meta["n_nodes"], ptr(tables["leaf"]),
             ptr(tables["et"]), meta["te_cnt"], meta["te_pad"],
-            n_pix, config.width, spp0, config.seed, n_spp, config.max_depth,
+            pix0, n_pix, config.width, spp0, config.seed, n_spp, config.max_depth,
             meta["n_emitters"], max(config.n_emitters, 1),
             int(config.integrator == "path_mis"), FILTERS[config.rfilter],
             int(meta["use_dof"]), ptr(next_pix), ctypes.c_void_p(stream),

@@ -1,1 +1,3 @@
-"""Training on the scan path (`shard.py`); multi-device rendering is ROADMAP Queue 1 item 12."""
+"""Multiple devices and processes: the sharded render and train step
+(`shard.py`) and their multi-process form on `torch.distributed`
+(`multihost.py`, rehearsed by `mh_worker.py`)."""

@@ -21,13 +21,21 @@ _LAYER_ROWS = [0, 1, 2, 4, 5, 6, 7, 8, 9]
 GROUP = 16
 
 
-def _pathk_group(acc, tables, meta, config, spp0: int, n_spp: int) -> None:
-    """Trace one group of samples and add it into `acc` in place."""
+def _pathk_group(acc, tables, meta, config, spp0: int, n_spp: int, pix0: int = 0,
+                 n_pix: int | None = None) -> None:
+    """Trace one group of samples for pixels [pix0, pix0 + n_pix) of the image
+    (by default all of them) on the tables' device, and add the rows into
+    those pixels of `acc` in place, on its device (the sharded render's
+    gather, `parallel/shard.py`). Each pixel's sums are added alone, so
+    ranges traced apart give the film of one whole-image call bit for bit."""
     h, w = config.height, config.width
-    out = pathk.pathk_trace(tables, meta, config, n_pix=w * h, spp0=spp0, n_spp=n_spp)
+    n_pix = h * w - pix0 if n_pix is None else n_pix
+    out = pathk.pathk_trace(tables, meta, config, n_pix=n_pix, spp0=spp0, n_spp=n_spp,
+                            pix0=pix0).to(acc.device)
     out = torch.nan_to_num(out, nan=0.0, posinf=0.0, neginf=0.0)
-    acc[..., :3] += out[_LAYER_ROWS].reshape(3, 3, h, w).permute(0, 2, 3, 1)
-    acc[..., 3] += out[3].reshape(1, h, w)
+    px = acc.view(3, h * w, 4)[:, pix0:pix0 + n_pix]
+    px[..., :3] += out[_LAYER_ROWS].reshape(3, 3, n_pix).transpose(1, 2)
+    px[..., 3] += out[3]
 
 
 def mega_step(scene: SceneData, config: RenderConfig, device: torch.device):

@@ -12,7 +12,8 @@ geometry, builds the emitter-pick distribution (scene.cpp:179-184), the
 per-area-light triangle CDFs (mesh.cpp:15-46), the volume-light tables,
 the media's corner stacks and the envmap's tables (`ops/envmap.py`) as
 the JAX builder does, row for row, so both produce the same tables, and
-from 257 triangles on the LBVH tables of the general path (`ops/bvh.py`).
+from 257 triangles on the LBVH tables of the general path (`ops/bvh.py`),
+and from 65 spheres on the spheres' LBVH (JAX build.py:615-618).
 A scene's `<denoiser>` lands in `RenderConfig.denoiser` / `dprops`; its
 photon map stays empty until `render.preprocess` builds it. The root may
 also be a `<test>` (`validation/xmltest.py` runs it); `build_bsdf_table`
@@ -470,10 +471,14 @@ class _Builder:
             sph_center = np.zeros((0, 3), np.float32)
             sph_radius = np.zeros(0, np.float32)
             sph_shape = np.zeros(0, np.int32)
-        bvh = None
+        def tree(packed, leaf):
+            return Bvh(packed=_t(packed), leaf=_t(leaf), pairs=_t(bvh_mod.pack_child_pairs(packed)))
+
+        bvh = sph_bvh = None
         if len(tri_v0) >= bvh_mod.MIN_TRIS_FOR_BVH:
-            packed, leaf = bvh_mod.build_bvh_tables(tri_v0, tri_v1, tri_v2)
-            bvh = Bvh(packed=_t(packed), leaf=_t(leaf), pairs=_t(bvh_mod.pack_child_pairs(packed)))
+            bvh = tree(*bvh_mod.build_bvh_tables(tri_v0, tri_v1, tri_v2))
+        if len(sph_center) >= bvh_mod.MIN_SPHS_FOR_BVH:
+            sph_bvh = tree(*bvh_mod.build_sphere_tables(sph_center, sph_radius))
         geometry = Geometry(
             tri_v0=_t(tri_v0), tri_e1=_t(tri_v1 - tri_v0), tri_e2=_t(tri_v2 - tri_v0),
             tri_n0=_t(tri_n0), tri_n1=_t(tri_n1), tri_n2=_t(tri_n2),
@@ -481,6 +486,7 @@ class _Builder:
             tri_tang=_t(_uv_tangents(tri_v0, tri_v1, tri_v2, tri_uv0, tri_uv1, tri_uv2)),
             tri_shape=_t(tri_shape, torch.int32), sph_center=_t(sph_center),
             sph_radius=_t(sph_radius), sph_shape=_t(sph_shape, torch.int32), bvh=bvh,
+            sph_bvh=sph_bvh,
         )
 
         # ---- per-area-light triangle CDFs (mesh.cpp:15-46)

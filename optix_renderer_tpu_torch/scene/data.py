@@ -131,10 +131,12 @@ class _Tables:
 
 @dataclass(frozen=True)
 class Bvh(_Tables):
-    """Packed threaded LBVH over the triangles (ops/bvh.py)."""
+    """Packed threaded LBVH over the triangles, or over the spheres (ops/bvh.py)."""
 
     packed: torch.Tensor  # [Nn,8] f32: min(3) max(3) skip bits, first bits
-    leaf: torch.Tensor  # [n_leaves,40] f32: 4 × (v0 e1 e2, id bits)
+    # triangles [n_leaves,40] f32: 4 × (v0 e1 e2, id bits); spheres
+    # [n_leaves,20]: 4 × (center, radius, id bits)
+    leaf: torch.Tensor
     # [n_pairs,16] f32: the same tree as child pairs (ops/bvh.pack_child_pairs),
     # the table of the general path's kernel
     pairs: torch.Tensor
@@ -165,6 +167,7 @@ class Geometry(_Tables):
     sph_radius: torch.Tensor  # [S]
     sph_shape: torch.Tensor  # [S] i32 shape id
     bvh: Bvh | None = None  # from ops/bvh.MIN_TRIS_FOR_BVH triangles on
+    sph_bvh: Bvh | None = None  # from ops/bvh.MIN_SPHS_FOR_BVH spheres on
     # [T,9] f32 v0 | e1 | e2 per row, the brute-force kernel's table; packed
     # from tri_v0 / e1 / e2 when not given, so every call reuses one copy
     tri_table: torch.Tensor | None = None
@@ -403,15 +406,20 @@ def scene_from_numpy(tree) -> SceneData:
     g, sh, b, tx, em, md = (tree.geometry, tree.shapes, tree.bsdfs, tree.textures,
                             tree.emitters, tree.media)
     i32 = torch.int32
-    has_bvh = np.asarray(g.bvh.packed).shape[0] > 0
+
+    def lbvh(b):
+        if np.asarray(b.packed).shape[0] == 0:
+            return None
+        return Bvh(packed=_t(b.packed), leaf=_t(b.leaf), pairs=_t(bvh_ops.pack_child_pairs(b.packed)))
+
     geometry = Geometry(
         **{k: _t(getattr(g, k)) for k in (
             "tri_v0", "tri_e1", "tri_e2", "tri_n0", "tri_n1", "tri_n2",
             "tri_uv0", "tri_uv1", "tri_uv2", "tri_tang", "sph_center", "sph_radius")},
         tri_shape=_t(g.tri_shape, i32),
         sph_shape=_t(g.sph_shape, i32),
-        bvh=Bvh(packed=_t(g.bvh.packed), leaf=_t(g.bvh.leaf),
-                pairs=_t(bvh_ops.pack_child_pairs(g.bvh.packed))) if has_bvh else None,
+        bvh=lbvh(g.bvh),
+        sph_bvh=lbvh(g.sph_bvh),
     )
     emitters = Emitters(
         **{k: _t(getattr(em, k)) for k in (

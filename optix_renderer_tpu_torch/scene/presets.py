@@ -8,7 +8,8 @@ file with OBJ meshes (and volume grids) and loaded through `scene.build`,
 so the presets, the CLI and the tests share one path; the `make_*`
 functions write into a temporary directory that they remove again.
 `test_xml` and `furnace_scene` write statistical `<test>` scenes
-(`validation/xmltest.py`).
+(`validation/xmltest.py`); `sphere_cornell_xml` the box with a grid of
+spheres, enough for the spheres' LBVH (`ops/bvh.py: MIN_SPHS_FOR_BVH`).
 """
 
 from __future__ import annotations
@@ -112,6 +113,28 @@ def make_cornell_box(width: int = 800, height: int = 600, spp: int = 32,
 
     with tempfile.TemporaryDirectory(prefix="optix_torch_scene_") as tmp:
         return load_scene(cornell_box_xml(tmp, width, height, spp, integrator))
+
+
+def sphere_cornell_xml(dirpath, width: int = 800, height: int = 600, spp: int = 4,
+                       integrator: str = "path_mis", nx: int = 10, nz: int = 8) -> Path:
+    """The Cornell box with an nx × nz grid of small spheres, radius 0.07,
+    on its floor, every third one a mirror, the rest diffuse with albedos
+    that vary across the grid (80 spheres by default: the spheres' LBVH,
+    and the scan path, which the path kernel leaves above 64 spheres).
+    Returns the XML path."""
+    dirpath = Path(dirpath)
+    parts = _header(width, height, spp, integrator, None) + _box_shapes(dirpath)
+    for i, x in enumerate(np.linspace(-0.8, 0.8, nx)):
+        for j, z in enumerate(np.linspace(-0.8, 0.8, nz)):
+            bsdf = ('<bsdf type="mirror"/>' if (i * nz + j) % 3 == 0 else
+                    f'<bsdf type="diffuse"><color name="albedo" value="'
+                    f'{0.2 + 0.6 * i / nx:.3f} {0.7 - 0.5 * j / nz:.3f} 0.5"/></bsdf>')
+            parts.append(f'<shape type="sphere"><point name="center" value="{x:.4f} 0.07 '
+                         f'{z:.4f}"/><float name="radius" value="0.07"/>{bsdf}</shape>')
+    parts.append("</scene>")
+    path = dirpath / "sphere_cbox.xml"
+    path.write_text("\n".join(parts) + "\n")
+    return path
 
 
 def absorbing_sphere_xml(dirpath, sigma_a: float = 0.5, radius: float = 1.0, width: int = 64,

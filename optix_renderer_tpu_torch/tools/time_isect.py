@@ -181,6 +181,39 @@ def brute_sets(isect, dev, rng) -> dict:
     return sets
 
 
+def sphere_soup(isect, dev, rng, n_sph: int = 10000, n_rays: int = MAIN_RAYS):
+    """A seeded soup of n_sph spheres (centres uniform in [-5, 5]^3, radii
+    uniform in [0.02, 0.2]) as a scene's `Bvh` over them (ops/bvh.py:
+    build_sphere_tables), n_rays camera rays from (0, 0, -12) toward
+    uniform points of the square z = 0, |x|, |y| <= 5, and shadow rays from
+    their closest hits (`isect.isect_spheres`) toward uniform points of a
+    light square at y = 8, each cut 1e-4 short of it. Returns (bvh,
+    camera, shadow), the rays as (o, d, mint, cutoff) on `dev`."""
+    import torch
+
+    from optix_renderer_tpu_torch.ops import bvh as bvh_mod
+    from optix_renderer_tpu_torch.scene.data import Bvh
+
+    f32 = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(dev)
+    center = rng.uniform(-5, 5, (n_sph, 3)).astype(np.float32)
+    radius = rng.uniform(0.02, 0.2, n_sph).astype(np.float32)
+    packed, leaf = bvh_mod.build_sphere_tables(center, radius)
+    tree = Bvh(packed=f32(packed), leaf=f32(leaf), pairs=f32(bvh_mod.pack_child_pairs(packed)))
+    target = np.concatenate([rng.uniform(-5, 5, (n_rays, 2)), np.zeros((n_rays, 1))], axis=1)
+    o = np.tile(np.float32([0.0, 0.0, -12.0]), (n_rays, 1))
+    d = target - o
+    cam = (f32(o), f32(d / np.linalg.norm(d, axis=1, keepdims=True)),
+           f32(np.full(n_rays, 1e-4)), f32(np.full(n_rays, 3.4e38)))
+    ids, t = isect.isect_spheres(tree, *cam)
+    p = cam[0] + cam[1] * torch.where(ids >= 0, t, 0.0)[:, None]
+    light = f32(np.concatenate([rng.uniform(-3, 3, (n_rays, 1)), np.full((n_rays, 1), 8.0),
+                                rng.uniform(-3, 3, (n_rays, 1))], axis=1))
+    to_l = light - p
+    dist = torch.linalg.vector_norm(to_l, dim=1)
+    shadow = (p, to_l / dist[:, None], cam[2], dist - 1e-4)
+    return tree, cam, shadow
+
+
 def ptxas_report(text: str) -> dict[str, dict[str, int]]:
     """{kernel: {registers, spill_stores, spill_loads}} from `nvcc -Xptxas -v`."""
     out, name = {}, None

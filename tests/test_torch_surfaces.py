@@ -408,10 +408,11 @@ def test_textured_bsdfs_match_jax(tmp_path):
 
 
 # fields of the port's tables that the JAX package does not have, or keeps in
-# another form: the brute-force kernel's packed table, the host flags and the
-# voxel grids' padded shape (the JAX package keeps the dense grids)
-_PORT_ONLY = {"tri_table", "bvh", "kinds", "mapped", "sphere_lights", "volume_lights", "depth",
-              "grid"}
+# another form: the brute-force kernel's packed table, the LBVHs (None below
+# their thresholds, where the JAX package keeps an empty table), the host
+# flags and the voxel grids' padded shape (the JAX package keeps the dense grids)
+_PORT_ONLY = {"tri_table", "bvh", "sph_bvh", "kinds", "mapped", "sphere_lights",
+              "volume_lights", "depth", "grid"}
 
 
 def _compare_fields(port, jax_tree, path=""):
