@@ -228,7 +228,20 @@ Drives the port's main path (`optix_renderer_tpu_torch`, no JAX) once:
    80-sphere Cornell scene (`sphere_cornell_xml`) at 800x600, depth 8,
    4 spp through `render()` with `isect_spheres` closest and any exactly
    8 x 4 each, and at 64x48 on the card against the CPU (median
-   relative error < 1e-3, means within 10 %).
+   relative error < 1e-3, means within 10 %);
+32. renders by path regeneration (`render/wavefront.py: render_wavefront`,
+   2^19 lanes) bit for bit the scan path's paths with the box filter (every
+   splatted position and its layers) and its films on every pixel of at
+   most two samples: the Cornell box at 800x600, depth 16, 2 spp,
+   `path_mis` and `path_mats` (`isect_brute` exactly 2 and 1 per
+   iteration), config A at depth 8, 1 spp (`isect_bvh` closest and any 1
+   each per iteration), counting the iterations by wrapping
+   `wavefront_iter`; then times in turns config B
+   (scan path against wavefront) and the gaussian Cornell at 16 spp (the
+   path kernel against wavefront), with Mpaths/s, iterations per sample,
+   segments per path, idle iterations at the end, config B's peak memory
+   and a trace of each (kernels, idle share), and one masked mitchell
+   splat over the pool.
 
 Every phase prints its seconds and raises on failure. The second-to-last line is a JSON object with
 each kernel's route, source, launches, error, times and bound; the last line
@@ -1322,6 +1335,220 @@ def spheres(dev, smi: str, reset_counts, read_counts) -> dict:
         raise AssertionError(f"80 spheres: the card's film differs from the CPU's: {st}")
     phase(31, f"isect_spheres agrees with its plain version at {MAIN_RAYS} rays; the 80-sphere "
               f"scene launched it {want} + {want} times")
+    return rec
+
+
+# ---- phase 32: wavefront path regeneration (render/wavefront.py)
+
+
+def _counted_wavefront(scene, cfg, spp: int, dev) -> tuple:
+    """`render_wavefront` at its defaults (2^19 lanes, a host read every 8
+    iterations) with `wavefront_iter` wrapped, the module function, to
+    record per iteration the live lanes before the refill, the work counter
+    before and after and the live lanes after, as device tensors read once
+    at the end. Returns (the film, the iterations' record)."""
+    from optix_renderer_tpu_torch.render import wavefront as wf
+
+    rows = []
+    orig = wf.wavefront_iter
+
+    def counted(acc, state, *a, **k):
+        before = torch.stack([state.active.sum(), state.next_work])
+        state, n_active = orig(acc, state, *a, **k)
+        rows.append(torch.cat([before, torch.stack([state.next_work, n_active])]))
+        return state, n_active
+
+    wf.wavefront_iter = counted
+    try:
+        out = wf.render_wavefront(scene, cfg, sample_count=spp, device=dev)
+    finally:
+        wf.wavefront_iter = orig
+    r = torch.stack(rows).cpu().numpy().astype(np.int64)
+    total = cfg.width * cfg.height * spp
+    lanes = min(1 << 19, total)
+    # lanes live in each iteration's bounce: those carried over and those
+    # the refill spawned
+    live = r[:, 0] + np.minimum(r[:, 2], total) - np.minimum(r[:, 1], total)
+    iters = len(r)
+    idle = int((live == 0).sum())
+    if idle and not np.all(live[iters - idle:] == 0):
+        raise AssertionError(f"iterations with no live lane before the end: {live.tolist()}")
+    rec = {"iterations": iters, "lanes": lanes, "work_items": total,
+           "iterations_per_sample": iters / spp,
+           "segments_per_path": float(live.sum()) / total,
+           "path_length_from_iterations": iters * lanes / total,
+           "idle_iterations": idle, "spp_done": out["spp_done"]}
+    return out, rec
+
+
+def _splatted(fn) -> tuple:
+    """(fn(), (pos [M,2], layers [3,M,3])): every lane that `film.splat_`
+    adds into a film during fn(), its mask applied, on the device."""
+    from optix_renderer_tpu_torch.render import film as film_ops
+
+    kept = []
+    orig = film_ops.splat_
+
+    def keep(img, rfilter, pos, layers, mask=None):
+        kept.append((pos, layers) if mask is None else (pos[mask], layers[:, mask]))
+        return orig(img, rfilter, pos, layers, mask=mask)
+
+    film_ops.splat_ = keep
+    try:
+        out = fn()
+    finally:
+        film_ops.splat_ = orig
+    return out, (torch.cat([p for p, _ in kept]), torch.cat([v for _, v in kept], dim=1))
+
+
+def _same_paths(a: tuple, b: tuple) -> bool:
+    """Whether two `_splatted` records hold the same samples: positions and
+    layers bit for bit, each set sorted by its position's bits (every
+    position distinct, so the order is the same)."""
+    def in_order(rec):
+        pos, vals = rec
+        bits = pos.contiguous().view(torch.int32).to(torch.int64)
+        key = (bits[:, 0] << 32) | (bits[:, 1] & 0xFFFFFFFF)
+        order = torch.argsort(key)
+        return key[order], vals[:, order]
+
+    (ka, va), (kb, vb) = in_order(a), in_order(b)
+    if ka.shape != kb.shape or torch.unique(ka).numel() != ka.numel():
+        return False
+    return torch.equal(ka, kb) and torch.equal(va, vb)
+
+
+def wavefront(dev, smi: str, reset_counts, read_counts) -> dict:
+    """Phase 32: `render_wavefront` bit for bit against the scan path on the
+    card with its launches exact per iteration, then timed against the scan
+    path (config B) and the path kernel (gaussian Cornell, 16 spp);
+    returns the phase's record."""
+    from optix_renderer_tpu_torch.render import film as film_ops
+    from optix_renderer_tpu_torch.render.render import render
+    from optix_renderer_tpu_torch.scene.presets import make_cornell_box, make_tessellated_cornell
+
+    layers = ("composite", "albedo", "normal", "weights")
+    rec = {"bit_equal": {}}
+    # (i, ii) each path bit for bit and the films, box filter, with the
+    # launches per iteration. A sample lands in one pixel with weight 1,
+    # but where its jitter lies within an ulp of 1, pixel + jitter rounds to
+    # the next pixel's edge and the sample lands there: that pixel then adds
+    # three samples, in the order their paths end, which the scan does not
+    # share. So the paths are held as a set (every splatted position and
+    # its layers equal), and the films bit for bit on every pixel of at
+    # most two samples (two additions commute).
+    cases = (("cornell_path_mis_2spp", "path_mis", 16, 2, {"isect_brute": 2}),
+             ("cornell_path_mats_2spp", "path_mats", 16, 2, {"isect_brute": 1}),
+             ("config_a_path_mis_1spp", "path_mis", 8, 1,
+              {"isect_bvh_closest": 1, "isect_bvh_any": 1}))
+    for name, integ, depth, spp, per_iter in cases:
+        if name.startswith("config_a"):
+            scene, cfg, _ = make_tessellated_cornell(800, 600, spp, integ)
+        else:
+            scene, cfg, _ = make_cornell_box(800, 600, spp, integ)
+        cfg = dataclasses.replace(cfg, max_depth=depth, rfilter="box")
+        scan, scan_paths = _splatted(
+            lambda: render(scene, cfg, sample_count=spp, device=dev, mega=False))
+        reset_counts()
+        (wave, it), wave_paths = _splatted(lambda: _counted_wavefront(scene, cfg, spp, dev))
+        n = read_counts()
+        same_paths = _same_paths(scan_paths, wave_paths)
+        three = scan["weights"] > 2  # box filter: the weight counts the samples
+        differ = {k: int((wave[k] != scan[k]).reshape(*three.shape, -1).any(-1).sum())
+                  for k in layers}
+        differ_two = {k: int(((wave[k] != scan[k]).reshape(*three.shape, -1).any(-1)
+                              & ~three).sum()) for k in layers}
+        want = {k: v * it["iterations"] for k, v in per_iter.items()}
+        it.update(launches=n, paths=int(scan_paths[0].shape[0]), paths_equal=same_paths,
+                  pixels_over_two_samples=int(three.sum()), pixels_differ=differ,
+                  max_abs_err=max(float(np.abs(wave[k] - scan[k]).max()) for k in layers))
+        rec["bit_equal"][name] = it
+        print(f"  {name} ({cfg.n_tris} triangles, depth {depth}, box): {json.dumps(it)}",
+              flush=True)
+        if not same_paths:
+            raise AssertionError(f"{name}: the wavefront's paths differ from the scan path's")
+        if any(differ_two.values()) or not np.array_equal(wave["weights"], scan["weights"]):
+            raise AssertionError(f"{name}: the wavefront film differs from the scan path's on "
+                                 f"{differ_two} pixels of at most two samples")
+        others = {k: v for k, v in n.items() if k not in want}
+        if any(n[k] != v for k, v in want.items()) or any(others.values()):
+            raise AssertionError(f"{name}: launches {n}, expected {want} for "
+                                 f"{it['iterations']} iterations")
+        if wave["spp_done"] != spp or scan["weights"].sum() != cfg.width * cfg.height * spp:
+            raise AssertionError(f"{name}: spp_done {wave['spp_done']}, samples "
+                                 f"{scan['weights'].sum()}")
+    del scene, scan, wave
+
+    # (iii) wall clock to the film on the host, in turns
+    def timed_runs(scene, cfg, spp, kinds):
+        render(scene, cfg, sample_count=1, device=dev)  # warm-up of both
+        render(scene, cfg, sample_count=1, device=dev, wavefront=True)
+        secs = {k: [] for k in kinds}
+        peak = dict.fromkeys(kinds, 0)
+        for k in (kinds[0], kinds[1], kinds[1], kinds[0]):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()  # the render's own peak is above it
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            out = render(scene, cfg, sample_count=spp, device=dev, wavefront=k == "wavefront")
+            secs[k].append(time.time() - t0)
+            peak[k] = max(peak[k], torch.cuda.max_memory_allocated() - base)
+            if not (np.isfinite(out["composite"]).all() and out["composite"].mean() > 0
+                    and out["spp_done"] == spp):
+                raise AssertionError(f"{k}: the film is not finite / positive")
+        n_paths = cfg.width * cfg.height * spp
+        return {k: {"s": v, "mpaths_s": [n_paths / s / 1e6 for s in v], "peak_gb": peak[k] / 1e9}
+                for k, v in secs.items()}
+
+    scene_b, cfg_b, _ = make_cornell_box(800, 600, 4, "path_mis")
+    cfg_b = dataclasses.replace(cfg_b, max_depth=16, rfilter="mitchell")
+    def counted_launches(scene, cfg, spp):
+        """The counted run's record with its launches, `isect_brute` exactly
+        2 per iteration (path_mis, 12 triangles) and nothing else."""
+        reset_counts()
+        _, it = _counted_wavefront(scene, cfg, spp, dev)
+        it["launches"] = n = read_counts()
+        if n["isect_brute"] != 2 * it["iterations"] or sum(n.values()) != n["isect_brute"]:
+            raise AssertionError(f"launches {n} for {it['iterations']} iterations")
+        return it
+
+    rec["config_b"] = timed_runs(scene_b, cfg_b, 4, ("scan", "wavefront"))
+    rec["config_b"]["wavefront_iterations"] = counted_launches(scene_b, cfg_b, 4)
+    rec["config_b"]["trace"] = {
+        k: device_trace(lambda: render(scene_b, cfg_b, sample_count=4, device=dev,
+                                       wavefront=k == "wavefront"),
+                        sums=("brute_kernel", "index"))
+        for k in ("scan", "wavefront")}
+    print(f"  config B (mitchell, path_mis, depth 16, 800x600, 4 spp) on {smi}: "
+          f"{json.dumps(rec['config_b'])}", flush=True)
+
+    scene_g, cfg_g, _ = make_cornell_box(800, 600, 16, "path_mis")
+    cfg_g = dataclasses.replace(cfg_g, max_depth=16, rfilter="gaussian")
+    rec["cornell_gaussian_16spp"] = timed_runs(scene_g, cfg_g, 16, ("kernel", "wavefront"))
+    rec["cornell_gaussian_16spp"]["wavefront_iterations"] = counted_launches(scene_g, cfg_g, 16)
+    print(f"  gaussian Cornell (path_mis, depth 16, 800x600, 16 spp) on {smi}: "
+          f"{json.dumps(rec['cornell_gaussian_16spp'])}", flush=True)
+
+    # one masked splat over the pool, the mitchell filter, a fifth of the
+    # lanes ending (CUDA events, after a warm-up)
+    g = torch.Generator(device=dev).manual_seed(32)
+    n = 1 << 19
+    pos = torch.rand((n, 2), device=dev, generator=g) * torch.tensor([800.0, 600.0], device=dev)
+    vals = torch.rand((3, n, 3), device=dev, generator=g)
+    mask = torch.rand(n, device=dev, generator=g) < 0.2
+    acc = torch.zeros((3, 600, 800, 4), device=dev)
+    rec["splat_ms"] = {
+        "masked": event_ms(lambda: film_ops.splat_(acc, "mitchell", pos, vals, mask=mask), 5),
+        "unmasked_480000": event_ms(
+            lambda: film_ops.splat_(acc, "mitchell", pos[:480000], vals[:, :480000]), 5)}
+    print(f"  splat, mitchell, 2^19 lanes masked (a fifth live) against 480,000 unmasked: "
+          f"{json.dumps(rec['splat_ms'])} ms on {smi}", flush=True)
+    b, gs = rec["config_b"], rec["cornell_gaussian_16spp"]
+    phase(32, f"wavefront paths bit-equal to the scan path's (Cornell via isect_brute, config "
+              f"A via isect_bvh); config B {np.median(b['scan']['mpaths_s']):.4f} Mpaths/s scan "
+              f"against {np.median(b['wavefront']['mpaths_s']):.4f} wavefront; gaussian 16 spp "
+              f"{np.median(gs['kernel']['mpaths_s']):.4f} kernel against "
+              f"{np.median(gs['wavefront']['mpaths_s']):.4f} wavefront")
     return rec
 
 
@@ -2766,6 +2993,9 @@ def main() -> None:
     shard_rec = sharded(dev, smi, reset_counts, read_counts)
     mh_rec = multihost(dev, smi)
     sph = spheres(dev, smi, reset_counts, read_counts)
+    wave = wavefront(dev, smi, reset_counts, read_counts)
+    wave_launches = {k: v["launches"] for k, v in wave["bit_equal"].items()}
+    wave_iters = {k: v["iterations"] for k, v in wave["bit_equal"].items()}
     kp = shard_rec["kernel_path"]
 
     def row(name, source, replaces, launches, err, ms, plain_ms, bnd, **extra):
@@ -2796,6 +3026,9 @@ def main() -> None:
             launches_cli_test_furnace_bvh=fe_tests["furnace_bvh"]["launches"][
                 "isect_bvh_closest"],
             max_abs_err_cli_test_furnace_bvh=front[26]["kernel_max_abs_err"]["furnace_bvh"],
+            launches_wavefront_config_a=wave_launches["config_a_path_mis_1spp"][
+                "isect_bvh_closest"],
+            wavefront_iterations_config_a=wave_iters["config_a_path_mis_1spp"],
             kernel="bvh_kernel<false> (child-pair walk, persistent warps fed from a ray counter)",
             camera=bvh_rows["closest_camera"], bounce=bvh_rows["closest_bounce"],
             ms_bounce=bvh_rows["closest_bounce"]["ms"],
@@ -2808,6 +3041,9 @@ def main() -> None:
             launches_config_a_direct_mis=slice_runs["config_a_direct_mis"]["launches"][
                 "isect_bvh_any"],
             launches_cli_test_furnace_bvh=fe_tests["furnace_bvh"]["launches"]["isect_bvh_any"],
+            launches_wavefront_config_a=wave_launches["config_a_path_mis_1spp"][
+                "isect_bvh_any"],
+            wavefront_iterations_config_a=wave_iters["config_a_path_mis_1spp"],
             shadow=bvh_rows["any_shadow"], ptxas=bvh_regs),
         row("isect_brute", ISECT_SOURCE, "optix_renderer_tpu/ops/pallas/mxu_intersect.py:195",
             launches_b["isect_brute"], err_brute, ms_brute, plain_brute, b_brute, rays=MAIN_RAYS,
@@ -2832,6 +3068,12 @@ def main() -> None:
             launches_sharded=shard_rec["scan_path"]["launches"],
             max_abs_err_sharded=shard_rec["scan_path"]["max_abs_err"],
             launches_spheres_render=sph["render"]["launches"]["isect_brute"],
+            launches_wavefront={k: v["isect_brute"] for k, v in wave_launches.items()
+                                if k.startswith("cornell")},
+            wavefront_iterations={k: v for k, v in wave_iters.items() if k.startswith("cornell")},
+            wavefront_config_b=wave["config_b"],
+            wavefront_cornell_gaussian_16spp=wave["cornell_gaussian_16spp"],
+            wavefront_splat_ms=wave["splat_ms"],
             sharded_train_step=shard_rec["train_step"], multihost=mh_rec),
         row("pathk_trace_medium", KERNEL_SOURCE, REPLACES, launches_m, err_medium, medium_ms,
             medium_plain_ms, walk_bound, branch="MXU, optix_renderer_tpu/ops/pallas/pathk.py:622",

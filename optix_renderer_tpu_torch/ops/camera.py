@@ -50,15 +50,19 @@ def _xform_vector(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def sample_ray(cam: Camera, width: int, height: int, sample_position: torch.Tensor,
-               aperture_sample: torch.Tensor) -> tuple[Ray, torch.Tensor]:
+               aperture_sample: torch.Tensor, *, s2c: torch.Tensor | None = None
+               ) -> tuple[Ray, torch.Tensor]:
     """sample_position: [N,2] continuous pixel coords; aperture: [N,2] in [0,1)².
+    `s2c`: `sample_to_camera_matrix` of `cam` on the samples' device, made
+    here when None (a copy to the host and back, which waits for the device).
 
     Returns (ray, importance weight [N,3]); the weight is 1 (perspective.cpp:140).
     """
     f32 = torch.float32
     sp = sample_position
     # inverted on the host, so a CUDA and a CPU render share the same matrix
-    s2c = sample_to_camera_matrix(cam.to("cpu"), width, height).to(sp.device)
+    if s2c is None:
+        s2c = sample_to_camera_matrix(cam.to("cpu"), width, height).to(sp.device)
     near_p = _xform_point(s2c, torch.stack(
         [sp[:, 0] / width, sp[:, 1] / height, torch.zeros_like(sp[:, 0])], dim=-1))
     d_local = normalize(near_p)

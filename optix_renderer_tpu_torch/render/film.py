@@ -69,11 +69,16 @@ def in_footprints(mask, rfilter: str, k: int) -> bool:
     return cover([(int(y), int(x)) for y, x in torch.nonzero(torch.as_tensor(mask)).tolist()], k)
 
 
-def splat_(img: torch.Tensor, rfilter: str, pos: torch.Tensor, layers: torch.Tensor) -> None:
+def splat_(img: torch.Tensor, rfilter: str, pos: torch.Tensor, layers: torch.Tensor,
+           mask: torch.Tensor | None = None) -> None:
     """Scatter-add filtered samples into `img` [K,H,W,4] (rgb·w, w) in place.
 
     pos [N,2] continuous pixel coordinates; layers [K,N,3] per-sample values.
-    A sample outside the image (or a padding lane) adds nothing.
+    A sample outside the image (or a padding lane) adds nothing, nor does a
+    lane where `mask` [N] bool is False: its filter weight becomes 0 and it
+    keeps its in-bounds position, as in the JAX `film.splat` (film.py:59-85),
+    so the masked lanes of `render/wavefront.py` (most of each iteration's)
+    do not all add into one pixel.
     """
     k, height, width, _ = img.shape
     radius = FILTER_RADIUS[rfilter]
@@ -90,6 +95,8 @@ def splat_(img: torch.Tensor, rfilter: str, pos: torch.Tensor, layers: torch.Ten
             w = _filter_eval(rfilter, px - ix.to(torch.float32)) * _filter_eval(
                 rfilter, py - iy.to(torch.float32))
             inside = (ix >= 0) & (ix < width) & (iy >= 0) & (iy < height)
+            if mask is not None:
+                inside = inside & mask
             w = torch.where(inside, w, 0.0)
             idx = torch.clamp(iy, 0, height - 1) * width + torch.clamp(ix, 0, width - 1)
             vals = torch.cat([layers * w[None, :, None], w.expand(k, -1)[..., None]], dim=-1)

@@ -203,7 +203,13 @@ def render(
     - `checkpoint_path` (+ `checkpoint_every=k`) snapshots the accumulator;
       `resume=True` continues from an existing snapshot;
     - SIGINT returns the partial film with `spp_done < spp`, and writes the
-      checkpoint when it came between two steps.
+      checkpoint when it came between two steps;
+    - `wavefront=True` renders `path_mis` / `path_mats` by path
+      regeneration (`render/wavefront.py`), even a scene the path kernel
+      takes, with previews every 4k iterations for `preview_every=k`; any
+      other integrator keeps the scan path. It has no checkpoints: a
+      snapshot would lose the paths in flight, so `checkpoint_path` or
+      `resume` with it raises.
 
     An adaptive config renders uniformly here, on the scan path (as the JAX
     `render()` does); `render/adaptive.py: render_adaptive` places its
@@ -216,12 +222,18 @@ def render(
     path, fewer when previews or checkpoints come more often).
     """
     from optix_renderer_tpu_torch.ops.cuda.pathk import pathk_eligible
+    from optix_renderer_tpu_torch.render import wavefront as wf
     from optix_renderer_tpu_torch.render.mega_render import GROUP, mega_step
 
     device = resolve_device(device)
-    if wavefront:
-        raise NotImplementedError("wavefront (path-regeneration) mode is not ported yet: ROADMAP "
-                                  "Queue 1 item 16 (render/wavefront.py)")
+    if wavefront and config.integrator in wf.WAVEFRONT_INTEGRATORS:
+        if checkpoint_path is not None or resume:
+            raise ValueError("wavefront mode has no mid-render checkpoint; use wavefront=False "
+                             "with checkpoint_path / resume")
+        return wf.render_wavefront(
+            scene, config, sample_count=sample_count, verbose=verbose,
+            preview_every_iters=preview_every * 4 if preview_every else 0,
+            preview_callback=preview_callback, device=device)
     scene = preprocess(scene, config, device)
     if mega is not False and pathk_eligible(scene, config):
         step, group = mega_step(scene, config, device), GROUP
