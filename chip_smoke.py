@@ -241,7 +241,27 @@ Drives the port's main path (`optix_renderer_tpu_torch`, no JAX) once:
    path kernel against wavefront), with Mpaths/s, iterations per sample,
    segments per path, idle iterations at the end, config B's peak memory
    and a trace of each (kernels, idle share), and one masked mitchell
-   splat over the pool.
+   splat over the pool;
+33. builds LBVHs on the card (`ops/bvh.py: build_bvh` / `build_sphere_bvh`
+   on CUDA: the chain of `csrc/lbvh.cu`) and holds `packed`, `leaf`,
+   `pairs` and `depth` bit for bit against the numpy twin (the port's
+   host builder) on 1, 3, 4, 257, 1,000 and 4,097 triangles, config A's
+   100,012, a 1,000-triangle soup of equal centroids, soups of 1,000,000
+   and 4,000,000 triangles with +0 / -0 coordinates and repeated
+   centroids, and 65, 10,000 and the 80 spheres of `sphere_cornell_xml`;
+   times the chain (CUDA events, median of 5), its two `torch.sort` calls
+   apart on as many keys, and its kernels (torch.profiler) at 100,012, 1M
+   and 4M triangles and 10,000 spheres beside the twin's host build plus
+   upload and the bytes bound; loads
+   config A with `device="cuda"` and `device="cpu"` in turns (one build
+   chain; every tensor bit-equal), times the `scene.to(cuda)` that
+   `render()` made of a host-built config A and H, and renders config A at
+   phase 8's settings from the card-built scene (launches equal to phase
+   8's) against the host-built one (median statistic), load + render
+   timed in turns.
+
+Every scene a phase renders on the card is built there
+(`load_scene(..., device)`, the presets' `device=`).
 
 Every phase prints its seconds and raises on failure. The second-to-last line is a JSON object with
 each kernel's route, source, launches, error, times and bound; the last line
@@ -293,7 +313,7 @@ OPS_SLAB = 25
 OPS_PAIR = 2 * OPS_SLAB + 1
 OPS_SPHERE = 39
 # rows of config M's 800x600 launch that phase 12 holds against the plain
-# version (its LBVH walk took 65-100 s for the 300 on an H100)
+# version (its LBVH walk took 65-122 s for the 300 on an H100)
 M_REF_ROWS = 300
 TRACK_SOURCE = "optix_renderer_tpu_torch/csrc/track.cu"
 # FP32 operations of one tracking step (csrc/track.cu: walk_lane's loop
@@ -469,7 +489,7 @@ def hold_golden(integ: str, dev) -> dict:
     from optix_renderer_tpu_torch.scene.presets import make_cornell_box
     from optix_renderer_tpu_torch.utils.imageio import read_exr
 
-    scene, cfg, _ = make_cornell_box(64, 48, 1, integ)
+    scene, cfg, _ = make_cornell_box(64, 48, 1, integ, device=dev)
     cfg = dataclasses.replace(cfg, max_depth=4, rfilter="gaussian")
     b = render(scene, cfg, sample_count=8, device=dev, mega=False)["composite"]
     a = read_exr(ROOT / "tests" / "golden" / f"cbox_{integ}.exr")[..., :3]
@@ -684,8 +704,7 @@ def furnace_holds(xml: Path, n: int, dev) -> float:
 
     sn = load_from_xml(xml).children_of("scene")[0]
     sn.origin = str(xml.parent)
-    scene, cfg, _ = build_scene(sn)
-    scene = scene.to(dev)
+    scene, cfg, _ = build_scene(sn, dev)
     geom = scene.geometry
 
     def f32(x):
@@ -798,8 +817,7 @@ def front_end(dev, smi: str, reset_counts, read_counts) -> dict:
         # the same luminance; the time the other 62 bounces take
         sn = load_from_xml(xmls["furnace_brute"]).children_of("scene")[0]
         sn.origin = str(tmp)
-        scene_f, cfg_f, _ = build_scene(sn)
-        scene_f = scene_f.to(dev)
+        scene_f, cfg_f, _ = build_scene(sn, dev)
         r_ = np.random.default_rng(0)
         n_f = 100_000
         pix = torch.from_numpy((r_.random((n_f, 2)) * [cfg_f.width, cfg_f.height]).astype(
@@ -959,9 +977,8 @@ def front_end(dev, smi: str, reset_counts, read_counts) -> dict:
         from optix_renderer_tpu_torch.scene.build import load_scene
         from optix_renderer_tpu_torch.utils.imageio import encode_png
 
-        scene_l, cfg_l, _ = load_scene(xml)
+        scene_l, cfg_l, _ = load_scene(xml, dev)
         cfg_l = dataclasses.replace(cfg_l, max_depth=16)
-        scene_l = scene_l.to(dev)
         ids = torch.arange(w * h, device=dev)
         acc = torch.zeros((3, h, w, 4), device=dev)
         render_round_accumulate(acc, scene_l, cfg_l, ids, 0)
@@ -1037,9 +1054,10 @@ def sharded(dev, smi: str, reset_counts, read_counts) -> dict:
     for name, mesh in meshes.items():
         print(f"  mesh {name}: {mesh.shape}, entries {[str(d) for d in mesh.flat]}")
     rec = {"meshes": {k: list(m.shape) for k, m in meshes.items()}, "kernel_path": {}}
-    box, cfg_box, _ = make_cornell_box(800, 600, 16, "path_mis")
+    box, cfg_box, _ = make_cornell_box(800, 600, 16, "path_mis", device=dev)
     cfg_box = dataclasses.replace(cfg_box, max_depth=16, rfilter="gaussian")
-    m_scene, cfg_m, _ = make_tessellated_cornell(800, 600, 16, "path_mis", nu=40, nv=51)
+    m_scene, cfg_m, _ = make_tessellated_cornell(800, 600, 16, "path_mis", nu=40, nv=51,
+                                                 device=dev)
     cfg_m = dataclasses.replace(cfg_m, max_depth=16, rfilter="gaussian")
     # the kernel path: the film of render_sharded equals render()'s bit for
     # bit, with one launch per mesh entry and group of samples
@@ -1207,7 +1225,8 @@ def multihost(dev, smi: str) -> dict:
             [sys.executable, "-m", "optix_renderer_tpu_torch", "scaling", "--device", dev.type,
              "-o", str(Path(tmp) / "scaling.json")], cwd=ROOT, check=True, timeout=600,
             capture_output=True, text=True).stdout
-    scene, cfg, _ = make_cornell_box(width=16, height=12, spp=4, integrator="path_mis")
+    scene, cfg, _ = make_cornell_box(width=16, height=12, spp=4, integrator="path_mis",
+                                     device=dev)
     cfg = dataclasses.replace(cfg, max_depth=3)
     ref = render(scene, cfg, sample_count=4, device=dev, mega=False)
     # render_sharded's kernel path over the two ranks' pixel ranges: the
@@ -1303,8 +1322,8 @@ def spheres(dev, smi: str, reset_counts, read_counts) -> dict:
     # an 80-sphere scene through render(): the scan path, isect_spheres
     # closest and any once per bounce
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sph_") as tmp:
-        scene, cfg, _ = load_scene(sphere_cornell_xml(tmp, 800, 600, 4, "path_mis"))
-        small, cfg_small, _ = load_scene(sphere_cornell_xml(tmp, 64, 48, 4, "path_mis"))
+        scene, cfg, _ = load_scene(sphere_cornell_xml(tmp, 800, 600, 4, "path_mis"), dev)
+        small, cfg_small, _ = load_scene(sphere_cornell_xml(tmp, 64, 48, 4, "path_mis"), dev)
     cfg = dataclasses.replace(cfg, max_depth=8)
     render(scene, cfg, sample_count=1, device=dev)  # warm-up
     reset_counts()
@@ -1443,9 +1462,9 @@ def wavefront(dev, smi: str, reset_counts, read_counts) -> dict:
               {"isect_bvh_closest": 1, "isect_bvh_any": 1}))
     for name, integ, depth, spp, per_iter in cases:
         if name.startswith("config_a"):
-            scene, cfg, _ = make_tessellated_cornell(800, 600, spp, integ)
+            scene, cfg, _ = make_tessellated_cornell(800, 600, spp, integ, device=dev)
         else:
-            scene, cfg, _ = make_cornell_box(800, 600, spp, integ)
+            scene, cfg, _ = make_cornell_box(800, 600, spp, integ, device=dev)
         cfg = dataclasses.replace(cfg, max_depth=depth, rfilter="box")
         scan, scan_paths = _splatted(
             lambda: render(scene, cfg, sample_count=spp, device=dev, mega=False))
@@ -1500,7 +1519,7 @@ def wavefront(dev, smi: str, reset_counts, read_counts) -> dict:
         return {k: {"s": v, "mpaths_s": [n_paths / s / 1e6 for s in v], "peak_gb": peak[k] / 1e9}
                 for k, v in secs.items()}
 
-    scene_b, cfg_b, _ = make_cornell_box(800, 600, 4, "path_mis")
+    scene_b, cfg_b, _ = make_cornell_box(800, 600, 4, "path_mis", device=dev)
     cfg_b = dataclasses.replace(cfg_b, max_depth=16, rfilter="mitchell")
     def counted_launches(scene, cfg, spp):
         """The counted run's record with its launches, `isect_brute` exactly
@@ -1522,7 +1541,7 @@ def wavefront(dev, smi: str, reset_counts, read_counts) -> dict:
     print(f"  config B (mitchell, path_mis, depth 16, 800x600, 4 spp) on {smi}: "
           f"{json.dumps(rec['config_b'])}", flush=True)
 
-    scene_g, cfg_g, _ = make_cornell_box(800, 600, 16, "path_mis")
+    scene_g, cfg_g, _ = make_cornell_box(800, 600, 16, "path_mis", device=dev)
     cfg_g = dataclasses.replace(cfg_g, max_depth=16, rfilter="gaussian")
     rec["cornell_gaussian_16spp"] = timed_runs(scene_g, cfg_g, 16, ("kernel", "wavefront"))
     rec["cornell_gaussian_16spp"]["wavefront_iterations"] = counted_launches(scene_g, cfg_g, 16)
@@ -1549,6 +1568,273 @@ def wavefront(dev, smi: str, reset_counts, read_counts) -> dict:
               f"against {np.median(b['wavefront']['mpaths_s']):.4f} wavefront; gaussian 16 spp "
               f"{np.median(gs['kernel']['mpaths_s']):.4f} kernel against "
               f"{np.median(gs['wavefront']['mpaths_s']):.4f} wavefront")
+    return rec
+
+
+# ---- phase 33: the LBVH build on the card (csrc/lbvh.cu)
+
+LBVH_SOURCE = "optix_renderer_tpu_torch/csrc/lbvh.cu"
+LBVH_REPLACES = "optix_renderer_tpu/native/lbvh.cpp:60"
+# FP32 operations per primitive counted from csrc/lbvh.cu: its box twice
+# (bounds_kernel and leaf_kernel, 12 compare-selects each), the centroid 6,
+# the Morton quotient 18 (3 subtractions, 3 extents, 3 divisions, 3
+# multiplies, 6 clamps), the leaf fold 6, the leaf slot's two edges 6; and
+# per interior node its box, 6 compare-selects
+OPS_LBVH_PRIM = 60
+OPS_LBVH_NODE = 6
+
+
+def lbvh_soup(n: int, kind: str, seed: int = 0) -> tuple:
+    """n triangles as tests/test_torch_lbvh.py draws them: "plain", "zeros"
+    (30 % of the coordinates +0 and 30 % -0, the first tenth of the
+    triangles repeated at the end) or "same" (every centroid (1, 2, 3))."""
+    rng = np.random.default_rng(seed + n)
+    v0 = rng.uniform(-5, 5, (n, 3)).astype(np.float32)
+    v1 = (v0 + rng.normal(0, 0.3, (n, 3))).astype(np.float32)
+    v2 = (v0 + rng.normal(0, 0.3, (n, 3))).astype(np.float32)
+    if kind == "zeros":
+        for v in (v0, v1, v2):
+            v[rng.random((n, 3)) < 0.3] = 0.0
+            v[rng.random((n, 3)) < 0.3] = -0.0
+        k = max(n // 10, 1)
+        for v in (v0, v1, v2):
+            v[-k:] = v[:k]
+    elif kind == "same":
+        for v in (v0, v1, v2):
+            v[:] = (1.0, 2.0, 3.0)
+        v0[::2, 0], v1[::2, 0], v2[::2, 0] = 0.0, 2.0, 2.0
+    return v0, v1, v2
+
+
+def lbvh_bound(n: int, sphere: bool) -> tuple:
+    """(bound ms, what bounds it, bytes) of one build over n primitives: each
+    input read once (the corners, 36 B per triangle; a sphere's centre and
+    radius, 16 B), each output written once (packed 32 B per node, the leaf
+    table 160 or 80 B per leaf, pairs 64 B per row), against the operations
+    of `OPS_LBVH_PRIM` / `OPS_LBVH_NODE`. The sorts' passes over the 8-byte
+    keys are inside the function and not counted."""
+    n_leaves = -(-n // 4)
+    nbytes = (n * (16 if sphere else 36) + (2 * n_leaves - 1) * 32
+              + n_leaves * (80 if sphere else 160) + max(n_leaves - 1, 1) * 64)
+    return (*bound(n * OPS_LBVH_PRIM + n_leaves * OPS_LBVH_NODE, nbytes), nbytes)
+
+
+def kernel_events(fn, reps: int = 3) -> dict:
+    """{kernel name: [device ms, count]} per call of `fn()`, over `reps`
+    calls, from the profiler's raw CUDA events (as `device_trace`); empty
+    where the profiler records none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            name = e.name()
+            m = re.search(r"lbvh::(\w+)", name)
+            key = m.group(1) if m else name[:60]
+            out.setdefault(key, [0.0, 0])
+            out[key][0] += e.duration_ns() / 1e6 / reps
+            out[key][1] += 1 / reps
+    return out
+
+
+def scene_tensors(x, path: str = "") -> dict:
+    """{path: tensor} of every tensor of a scene."""
+    from optix_renderer_tpu_torch.scene.data import PhotonMap, _Tables
+
+    if isinstance(x, torch.Tensor):
+        return {path: x}
+    out = {}
+    if isinstance(x, _Tables):
+        for f in dataclasses.fields(x):
+            out.update(scene_tensors(getattr(x, f.name), f"{path}.{f.name}"))
+    elif isinstance(x, PhotonMap):
+        for k in x._fields:
+            out.update(scene_tensors(getattr(x, k), f"{path}.{k}"))
+    return out
+
+
+def tables_equal(what: str, tree, ref) -> float:
+    """The card's LBVH `tree` against the numpy twin's `ref`: packed, leaf and
+    pairs bit for bit, and the depth. Returns max |a - b| over the tables."""
+    bad, err = {}, 0.0
+    for name in ("packed", "leaf", "pairs"):
+        a, b = getattr(tree, name).cpu(), getattr(ref, name).cpu()
+        if a.shape != b.shape:
+            raise AssertionError(f"{what}: {name} is {tuple(a.shape)}, the twin's "
+                                 f"{tuple(b.shape)}")
+        bad[name] = int((a.view(torch.int32) != b.view(torch.int32)).sum())
+        err = max(err, float((a - b).abs().nan_to_num(0.0).max()))
+    if any(bad.values()) or tree.depth != ref.depth:
+        raise AssertionError(f"{what}: words that differ from the numpy twin {bad}, depth "
+                             f"{tree.depth} against {ref.depth}")
+    return err
+
+
+def lbvh(dev, smi: str, reset_counts, read_counts, launches_a: dict) -> dict:
+    """Phase 33: the LBVH build on the card (`ops/bvh.py: build_bvh` /
+    `build_sphere_bvh` on CUDA, the chain of csrc/lbvh.cu) bit for bit
+    against its numpy twin, timed beside the twin's host build and upload;
+    config A loaded on the card and on the host (every tensor equal) and
+    rendered from each; returns the phase's record."""
+    from optix_renderer_tpu_torch.ops import bvh
+    from optix_renderer_tpu_torch.ops.cuda import lbvh as cuda_lbvh
+    from optix_renderer_tpu_torch.render.render import render
+    from optix_renderer_tpu_torch.scene.build import load_scene
+    from optix_renderer_tpu_torch.scene.presets import (
+        medium_cornell_xml,
+        sphere_cornell_xml,
+        tessellated_cornell_xml,
+    )
+
+    rec = {"sizes": {}}
+    tmp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_lbvh_")
+    tmp = Path(tmp_dir.name)
+    xml_a = tessellated_cornell_xml(tmp, 800, 600, 4, "path_mis")
+    host_a, _, _ = load_scene(xml_a, "cpu")
+    host_s, _, _ = load_scene(sphere_cornell_xml(tmp, 800, 600, 4, "path_mis"), "cpu")
+    g = host_a.geometry
+    rng = np.random.default_rng(33)
+    spheres = {n: (rng.uniform(-3, 3, (n, 3)).astype(np.float32),
+                   rng.uniform(0.01, 0.2, n).astype(np.float32)) for n in (65, 10_000)}
+    for c, _ in spheres.values():
+        c[rng.random(c.shape) < 0.2] = -0.0
+        c[rng.random(c.shape) < 0.2] = 0.0
+    spheres[80] = (host_s.geometry.sph_center.numpy(), host_s.geometry.sph_radius.numpy())
+    cases = {f"tri_{n}": lbvh_soup(n, "plain") for n in (1, 3, 4, 257, 1000, 4097)}
+    cases["config_a_100012"] = tuple(x.numpy() for x in (g.tri_v0, g.tri_v0 + g.tri_e1,
+                                                          g.tri_v0 + g.tri_e2))
+    cases["same_centroid_1000"] = lbvh_soup(1000, "same")
+    cases["zeros_1000000"] = lbvh_soup(1_000_000, "zeros")
+    cases["zeros_4000000"] = lbvh_soup(4_000_000, "zeros")
+    cases.update({f"spheres_{n}": v for n, v in spheres.items()})
+    timed_cases = ("config_a_100012", "zeros_1000000", "zeros_4000000", "spheres_10000")
+    err = 0.0
+    for name, arrays in cases.items():
+        sphere = name.startswith("spheres")
+        build = bvh.build_sphere_bvh if sphere else bvh.build_bvh
+        on_dev = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in arrays]
+        _sync(dev)
+        tree = build(*on_dev, dev)
+        # the twin: the numpy build on the host, then its tables uploaded
+        t0 = time.time()
+        ref = build(*arrays, "cpu")
+        host_s_ = time.time() - t0
+        up = ref.to(dev)
+        _sync(dev)
+        plain_s = time.time() - t0
+        err = max(err, tables_equal(name, tree, ref))
+        n = arrays[0].shape[0]
+        b_ms, b_by, nbytes = lbvh_bound(n, sphere)
+        row_ = {"n": n, "nodes": int(tree.packed.shape[0]), "pair_rows": int(tree.pairs.shape[0]),
+                "depth": tree.depth, "plain_host_ms": host_s_ * 1e3, "plain_ms": plain_s * 1e3,
+                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
+        if name in timed_cases:
+            row_["ms_each"] = [event_ms(lambda: build(*on_dev, dev)) for _ in range(5)]
+            row_["ms"] = float(np.median(row_["ms_each"]))
+            # the chain's two torch.sort calls, timed apart on as many
+            # unique int64 keys (n, then one per node), and each kernel by
+            # torch.profiler (which, late in a whole run, drops some of this
+            # phase's kernel events, so the sorts' share is not read from it)
+            gen = torch.Generator(device=dev).manual_seed(n)
+            keys = (torch.randint(0, 2**30, (n,), device=dev, generator=gen) << 32) | \
+                torch.arange(n, device=dev)
+            pkeys = torch.randperm(row_["nodes"], device=dev, generator=gen)
+            sort_each = [event_ms(lambda: (torch.sort(keys), torch.sort(pkeys)))
+                         for _ in range(5)]
+            row_["sort_ms"] = float(np.median(sort_each))
+            row_["sort_share"] = row_["sort_ms"] / row_["ms"]
+            row_["kernels"] = kernel_events(lambda: build(*on_dev, dev)) or "not measured"
+        rec["sizes"][name] = row_
+        print(f"  {name}: card build bit-equal to the numpy twin; {json.dumps(row_)}",
+              flush=True)
+        del tree, ref, up, on_dev
+    rec["max_abs_err"] = err
+
+    # config A loaded on the card: one build chain, every tensor equal to
+    # the host build's
+    reset_counts()
+    cuda_lbvh.LAUNCHES["lbvh_build"] = 0
+    card_a, cfg_a, _ = load_scene(xml_a, dev)
+    launches = cuda_lbvh.LAUNCHES["lbvh_build"]
+    if launches != 1 or any(read_counts().values()):
+        raise AssertionError(f"config A's load launched the build {launches} times, "
+                             f"other kernels {read_counts()}")
+    got, want = scene_tensors(card_a), scene_tensors(host_a)
+
+    def bits(t):
+        return t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()]) \
+            if t.is_floating_point() else t
+
+    bad = [k for k in want if got[k].device.type != dev.type or got[k].dtype != want[k].dtype
+           or got[k].shape != want[k].shape or not torch.equal(bits(got[k].cpu()), bits(want[k]))]
+    if got.keys() != want.keys() or bad:
+        raise AssertionError(f"config A on the card differs from the host build: {bad}")
+    rec.update(launches=launches, tensors_equal=len(got))
+
+    # the copy that render() made of a host-built scene (scan_step's
+    # scene.to(device)), now gone: config A and config H
+    host_h, _, _ = load_scene(medium_cornell_xml(tmp, 800, 600, 1, "path_vol_mis", "H"), "cpu")
+    to_ms = {}
+    for name, sc in (("config_a", host_a), ("config_h", host_h)):
+        ms = []
+        for _ in range(3):
+            _sync(dev)
+            t0 = time.time()
+            sc.to(dev)
+            _sync(dev)
+            ms.append((time.time() - t0) * 1e3)
+        to_ms[name] = ms
+    rec["scene_to_ms"] = to_ms
+    print(f"  scene.to(cuda) of a host-built scene, ms (3 each): {json.dumps(to_ms)}", flush=True)
+
+    # end to end: config A at phase 8's settings from the card-built scene
+    # (launches equal to phase 8's) against the host-built scene (films by
+    # the median statistic: the splat's order on the card is not fixed);
+    # then load_scene, and load_scene + render, on each device in turns
+    cfg_a = dataclasses.replace(cfg_a, max_depth=8, rfilter="gaussian")
+    render(card_a, cfg_a, sample_count=1, device=dev)  # warm-up
+    reset_counts()
+    out_card = render(card_a, cfg_a, sample_count=4, device=dev)
+    ln = read_counts()
+    if ln != {**{k: 0 for k in ln}, **launches_a}:
+        raise AssertionError(f"config A from the card-built scene launched {ln}, phase 8 "
+                             f"{launches_a}")
+    out_host = render(host_a, cfg_a, sample_count=4, device=dev)
+    a, b = out_card["composite"], out_host["composite"]
+    rel = np.abs(a - b) / (np.abs(b) + 1e-3)
+    st = {"median_rel_err": float(np.median(rel)), "max_abs_err": float(np.abs(a - b).max()),
+          "mean_card_built": float(a.mean()), "mean_host_built": float(b.mean())}
+    if not (np.isfinite(a).all() and a.shape == (cfg_a.height, cfg_a.width, 3)
+            and st["median_rel_err"] < 1e-3
+            and abs(st["mean_card_built"] - st["mean_host_built"])
+            <= 0.1 * abs(st["mean_host_built"])):
+        raise AssertionError(f"config A from the card-built scene: {st}")
+    load_s = {"cuda": [], "cpu": []}
+    e2e = {"card_built_s": [], "host_built_s": []}
+    for key, d in (("host_built_s", "cpu"), ("card_built_s", dev)) * 2:
+        _sync(dev)
+        t0 = time.time()
+        sc, _, _ = load_scene(xml_a, d)
+        _sync(dev)
+        load_s[torch.device(d).type].append(time.time() - t0)
+        render(sc, cfg_a, sample_count=4, device=dev)  # the film on the host
+        e2e[key].append(time.time() - t0)
+    rec["load_scene_s"] = load_s
+    rec["config_a"] = {**st, "launches": ln, "load_and_render_s": e2e}
+    print(f"  config A: load_scene on cuda and on cpu give {len(got)} tensors bit for bit; "
+          f"one build chain; load_scene s {json.dumps(load_s)} on {smi}", flush=True)
+    print(f"  config A 800x600 path_mis depth 8, 4 spp, card-built against host-built scene: "
+          f"{json.dumps(rec['config_a'])} on {smi}", flush=True)
+    tmp_dir.cleanup()
+    r4 = rec["sizes"]["zeros_4000000"]
+    phase(33, f"the card's LBVH build equals the numpy twin bit for bit on {len(cases)} inputs "
+              f"up to 4,000,000 triangles ({r4['ms']:.3f} ms against {r4['plain_ms']:.1f} ms "
+              f"on the host); config A loads on cuda as on cpu, and renders from it")
     return rec
 
 
@@ -1604,7 +1890,7 @@ def main() -> None:
 
     # ---- 3. kernel vs plain version on the card, small Cornell
     for integ in ("path_mis", "path_mats"):
-        scene, cfg, _ = make_cornell_box(64, 48, 4, integ)
+        scene, cfg, _ = make_cornell_box(64, 48, 4, integ, device=dev)
         cfg = dataclasses.replace(cfg, max_depth=4, rfilter="box")
         tables, meta = pathk.build_pathk_tables(scene, cfg, dev)
         n_pix = cfg.width * cfg.height
@@ -1636,7 +1922,7 @@ def main() -> None:
     # tests/test_torch_pathk.py: test_golden_per_pixel_statistic_of_jax_kernel),
     # so its check runs on 4x4-pixel block means; path_mis is checked per pixel.
     for integ, block in (("path_mis", 1), ("path_mats", 4)):
-        scene, cfg, _ = make_cornell_box(64, 48, 1, integ)
+        scene, cfg, _ = make_cornell_box(64, 48, 1, integ, device=dev)
         cfg = dataclasses.replace(cfg, max_depth=4, rfilter="gaussian")
         b = render(scene, cfg, sample_count=8, device=dev)["composite"]
         a = read_exr(ROOT / "tests" / "golden" / f"cbox_{integ}.exr")[..., :3]
@@ -1650,7 +1936,7 @@ def main() -> None:
     phase(4, "golden check holds (means within 5 %, mean rel err < 0.35)")
 
     # ---- 5. the main path at full size
-    scene, cfg, _ = make_cornell_box(800, 600, 64, "path_mis")
+    scene, cfg, _ = make_cornell_box(800, 600, 64, "path_mis", device=dev)
     cfg = dataclasses.replace(cfg, max_depth=16, rfilter="gaussian")
     render(scene, cfg, sample_count=16, device=dev)  # warm-up
     pathk.LAUNCHES = 0
@@ -1737,7 +2023,7 @@ def main() -> None:
     # ---- 7. the general path's intersection kernels vs their plain versions
     rng = np.random.default_rng(7)
     t0 = time.time()
-    scene_a, cfg_a, _ = make_tessellated_cornell(800, 600, 4, "path_mis")
+    scene_a, cfg_a, _ = make_tessellated_cornell(800, 600, 4, "path_mis", device=dev)
     cfg_a = dataclasses.replace(cfg_a, max_depth=8, rfilter="gaussian")
     geom_a = scene_a.geometry.to(dev)
     tree = geom_a.bvh
@@ -1767,7 +2053,7 @@ def main() -> None:
         raise AssertionError("isect_bvh launched without its ray counter")
     print(f"  an isect_bvh launch without its ray counter returns {rc} "
           f"({_build.error_string(rc)})")
-    scene_b, cfg_b, _ = make_cornell_box(800, 600, 4, "path_mis")
+    scene_b, cfg_b, _ = make_cornell_box(800, 600, 4, "path_mis", device=dev)
     cfg_b = dataclasses.replace(cfg_b, max_depth=16, rfilter="mitchell")
     # isect_brute at 480,000 rays against 12, 64 and 252 triangles: id, t, u
     # and v equal to the plain version's on every ray (the sweep's
@@ -1836,7 +2122,7 @@ def main() -> None:
         raise AssertionError(f"config A launched an LBVH kernel no time: {launches_a}")
     if not (np.isfinite(comp).all() and comp.shape == (600, 800, 3) and comp.mean() > 0):
         raise AssertionError("config A film is not finite / positive")
-    scene_q, cfg_q, _ = make_tessellated_cornell(400, 300, 1, "path_mis")
+    scene_q, cfg_q, _ = make_tessellated_cornell(400, 300, 1, "path_mis", device=dev)
     cfg_q = dataclasses.replace(cfg_q, max_depth=8)
     render(scene_q, cfg_q, sample_count=4, device=dev)  # warm-up, as bench.py's _run
     t0 = time.time()
@@ -1922,7 +2208,8 @@ def main() -> None:
     if not (np.isfinite(comp).all() and comp.shape == (600, 800, 3) and comp.mean() > 0):
         raise AssertionError("config B film is not finite / positive")
     # config B-252: the same at 252 triangles, still below the LBVH's 257
-    scene_b252, cfg_b252, _ = make_tessellated_cornell(800, 600, 4, "path_mis", nu=10, nv=7)
+    scene_b252, cfg_b252, _ = make_tessellated_cornell(800, 600, 4, "path_mis", nu=10, nv=7,
+                                                       device=dev)
     cfg_b252 = dataclasses.replace(cfg_b252, max_depth=16, rfilter="mitchell")
     render(scene_b252, cfg_b252, sample_count=1, device=dev)  # warm-up
     for k in isect.LAUNCHES:
@@ -2006,7 +2293,8 @@ def main() -> None:
 
     err_medium = 0.0
     for integ in ("path_mis", "path_mats"):
-        scene_m, cfg_m, _ = make_tessellated_cornell(160, 120, 4, integ, nu=40, nv=51)
+        scene_m, cfg_m, _ = make_tessellated_cornell(160, 120, 4, integ, nu=40, nv=51,
+                                                     device=dev)
         cfg_m = dataclasses.replace(cfg_m, max_depth=4, rfilter="box")
         tables, meta = pathk.build_pathk_tables(scene_m, cfg_m, dev)
         if not meta["t_cnt"] == 8012 > pathk.VPU_MAX_TRIS:
@@ -2014,7 +2302,7 @@ def main() -> None:
         err_medium = max(err_medium, rows_equal(tables, meta, cfg_m, 160 * 120, 4,
                                                 f"config M 160x120 box {integ}"))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        scene_s, cfg_s, _ = load_scene(strip_room_xml(Path(tmp)))
+        scene_s, cfg_s, _ = load_scene(strip_room_xml(Path(tmp)), dev)
     cfg_s = dataclasses.replace(cfg_s, max_depth=4, rfilter="box")
     tables, meta = pathk.build_pathk_tables(scene_s, cfg_s, dev)
     if not (meta["t_cnt"] == 70 > pathk.VPU_MAX_TRIS and meta["n_sph"] == 1
@@ -2027,7 +2315,8 @@ def main() -> None:
               f"160x120, strip room 64x48); medium instances {medium_regs}")
 
     # ---- 12. config M through render(): the medium branch on the main path
-    scene_m, cfg_m, _ = make_tessellated_cornell(800, 600, 16, "path_mis", nu=40, nv=51)
+    scene_m, cfg_m, _ = make_tessellated_cornell(800, 600, 16, "path_mis", nu=40, nv=51,
+                                                 device=dev)
     cfg_m = dataclasses.replace(cfg_m, max_depth=16, rfilter="gaussian")
     render(scene_m, cfg_m, sample_count=1, device=dev)  # warm-up
     pathk.LAUNCHES = 0
@@ -2233,7 +2522,7 @@ def main() -> None:
     per_sample = {"normals": 1, "av": 2, "direct": 2, "direct_ems": 2, "direct_mats": 2,
                   "direct_mis": 3, "preview": 2, "envmaptester": 0}
     slice_runs = {}
-    scene_c, cfg_c, _ = make_cornell_box(800, 600, 4)
+    scene_c, cfg_c, _ = make_cornell_box(800, 600, 4, device=dev)
     for integ, k in per_sample.items():
         cfg = dataclasses.replace(cfg_c, integrator=integ)
         if pathk.pathk_eligible(scene_c, cfg):
@@ -2250,7 +2539,7 @@ def main() -> None:
                 and (comp.mean() > 0) == (integ != "envmaptester")):
             raise AssertionError(f"Cornell {integ}: the film is not finite / as expected")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        scene_t, cfg_t, _ = load_scene(textured_cornell_xml(Path(tmp), 800, 600, 4))
+        scene_t, cfg_t, _ = load_scene(textured_cornell_xml(Path(tmp), 800, 600, 4), dev)
     if pathk.pathk_eligible(scene_t, cfg_t) or not scene_t.shapes.mapped:
         raise AssertionError("config T is not the textured scene of the scan path")
     for integ in ("direct_mis", "path_mis"):
@@ -2285,7 +2574,8 @@ def main() -> None:
     for integ in ("direct_mis", "normals"):
         hold_golden(integ, dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        scene_t, cfg_t, _ = load_scene(textured_cornell_xml(Path(tmp), 64, 48, 4, rfilter="box"))
+        scene_t, cfg_t, _ = load_scene(textured_cornell_xml(Path(tmp), 64, 48, 4, rfilter="box"),
+                                       dev)
     for integ in ("direct_mis", "path_mis"):
         cfg = dataclasses.replace(cfg_t, integrator=integ)
         a = render(scene_t, cfg, device=dev)["composite"]
@@ -2310,9 +2600,9 @@ def main() -> None:
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         scene_h, cfg_h, _ = load_scene(medium_cornell_xml(Path(tmp), 800, 600, 1, "path_vol_mis",
-                                                          "H"))
+                                                          "H"), dev)
         scene_v, cfg_v, _ = load_scene(medium_cornell_xml(Path(tmp), 800, 600, 1, "path_vol_mis",
-                                                          "V"))
+                                                          "V"), dev)
     cfg_h, cfg_v = (dataclasses.replace(c, max_depth=8) for c in (cfg_h, cfg_v))
     media_h = scene_h.media.to(dev)
     stack_mb = (media_h.vol_corners.numel() + media_h.vol_tcorners.numel()) * 4 / 1e6
@@ -2460,7 +2750,7 @@ def main() -> None:
     # ---- 19. configs H and V on the card against the CPU
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         small = {k: load_scene(medium_cornell_xml(Path(tmp), 64, 48, 4, "path_vol_mis", k,
-                                                  rfilter="box"))[:2] for k in "HV"}
+                                                  rfilter="box"), dev)[:2] for k in "HV"}
     for kind, (scene, cfg) in small.items():
         cfg = dataclasses.replace(cfg, max_depth=8)
         a = render(scene, cfg, device=dev)["composite"]
@@ -2515,9 +2805,8 @@ def main() -> None:
             r.standard_normal(tuple(g.shape)).astype(np.float32))).sum())
             for _, g in sorted(grads.items()))
 
-    scene_g, cfg_g, _ = make_cornell_box(800, 600, 1, "path_mis")
+    scene_g, cfg_g, _ = make_cornell_box(800, 600, 1, "path_mis", device=dev)
     cfg_g = dataclasses.replace(cfg_g, max_depth=16)
-    scene_g = scene_g.to(dev)
     n_g = cfg_g.width * cfg_g.height
     ids_g = torch.arange(n_g, device=dev)
     em0 = scene_g.emitters.radiance
@@ -2600,10 +2889,10 @@ def main() -> None:
     # microfacet (ks 0.3, alpha 0.3), so that bsdf_kd and bsdf_alpha reach the
     # loss beside tex_value and em_radiance (on the diffuse box their
     # gradients are 0)
-    scene_s, cfg_s, _ = make_cornell_box(64, 48, 1, "path_mis")
+    scene_s, cfg_s, _ = make_cornell_box(64, 48, 1, "path_mis", device=dev)
     cfg_s = dataclasses.replace(cfg_s, max_depth=3)
     b_s = scene_s.bsdfs
-    odd = (torch.arange(b_s.type.shape[0]) % 2 == 1) & (b_s.type == BsdfType.DIFFUSE)
+    odd = (torch.arange(b_s.type.shape[0], device=dev) % 2 == 1) & (b_s.type == BsdfType.DIFFUSE)
     scene_s = dataclasses.replace(scene_s, bsdfs=dataclasses.replace(
         b_s, type=torch.where(odd, BsdfType.MICROFACET, b_s.type).to(b_s.type.dtype),
         ks=torch.where(odd, 0.3, b_s.ks), alpha=torch.where(odd, 0.3, b_s.alpha)))
@@ -2671,7 +2960,7 @@ def main() -> None:
         return (loss.detach(), grads, t1 - t0, time.time() - t1, c_fwd, c_bwd,
                 torch.cuda.max_memory_allocated(dev_) if cuda else 0)
 
-    scene_l, cfg_l, _ = make_tessellated_cornell(800, 600, 1, "path_mis", nu=12, nv=7)
+    scene_l, cfg_l, _ = make_tessellated_cornell(800, 600, 1, "path_mis", nu=12, nv=7, device=dev)
     cfg_l = dataclasses.replace(cfg_l, max_depth=3)
     if scene_l.geometry.tri_v0.shape[0] != 300 or scene_l.geometry.bvh is None:
         raise AssertionError("the LBVH gradient scene is not the 300-triangle box")
@@ -2711,7 +3000,7 @@ def main() -> None:
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         xml = cornell_box_xml(tmp, 800, 600, 16, "path_mis", sampler="adaptive")
-        scene_ad, cfg_ad, _ = load_scene(xml)
+        scene_ad, cfg_ad, _ = load_scene(xml, dev)
         if not (cfg_ad.adaptive and cfg_ad.adaptive_uniform_rounds == 4) or \
                 pathk.pathk_eligible(scene_ad, cfg_ad):
             raise AssertionError("the adaptive Cornell box did not build as an adaptive config "
@@ -2772,7 +3061,7 @@ def main() -> None:
     from optix_renderer_tpu_torch.render.render import preprocess
     from optix_renderer_tpu_torch.render.variance import variance_from_image
 
-    scene_p, cfg_p, _ = make_cornell_box(800, 600, 4, "photonmapper")
+    scene_p, cfg_p, _ = make_cornell_box(800, 600, 4, "photonmapper", device=dev)
     # photonRadius 0: the radius the build derives itself (bbox diagonal / 500)
     cfg_p = dataclasses.replace(cfg_p, max_depth=16, rfilter="gaussian",
                                 iprops=(("photonCount", 1_000_000), ("photonRadius", 0.0)))
@@ -2865,9 +3154,9 @@ def main() -> None:
     # ---- 24. the photon mapper on the card against the CPU
     pm_small = {}
     for name, (scene_s, cfg_s) in {
-            "cornell_48x48": make_cornell_box(48, 48, 4, "photonmapper")[:2],
+            "cornell_48x48": make_cornell_box(48, 48, 4, "photonmapper", device=dev)[:2],
             "lbvh_300_64x48": make_tessellated_cornell(64, 48, 4, "photonmapper", nu=12,
-                                                       nv=7)[:2]}.items():
+                                                       nv=7, device=dev)[:2]}.items():
         cfg_s = dataclasses.replace(cfg_s, max_depth=8,
                                     iprops=(("photonCount", 20000), ("photonRadius", 0.12)))
         kernel = "isect_bvh_closest" if name.startswith("lbvh") else "isect_brute"
@@ -2994,6 +3283,7 @@ def main() -> None:
     mh_rec = multihost(dev, smi)
     sph = spheres(dev, smi, reset_counts, read_counts)
     wave = wavefront(dev, smi, reset_counts, read_counts)
+    lb = lbvh(dev, smi, reset_counts, read_counts, launches_a)
     wave_launches = {k: v["launches"] for k, v in wave["bit_equal"].items()}
     wave_iters = {k: v["iterations"] for k, v in wave["bit_equal"].items()}
     kp = shard_rec["kernel_path"]
@@ -3130,6 +3420,23 @@ def main() -> None:
             launches_any=sph["render"]["launches"]["isect_spheres_any"],
             camera=sph["closest_camera"], shadow=sph["any_shadow"],
             render=sph["render"], card_vs_cpu=sph["card_vs_cpu_64x48"], ptxas=sph["ptxas"]),
+        row("lbvh_build", LBVH_SOURCE, LBVH_REPLACES, lb["launches"], lb["max_abs_err"],
+            lb["sizes"]["config_a_100012"]["ms"], lb["sizes"]["config_a_100012"]["plain_ms"],
+            (lb["sizes"]["config_a_100012"]["bound_ms"],
+             lb["sizes"]["config_a_100012"]["bound_by"]),
+            no_pallas_counterpart="the JAX package builds on the host: ops/bvh.py:160 "
+                                  "build_lbvh_host",
+            kernel="bounds_kernel, keys_kernel, torch.sort, leaf_kernel, box_kernel per level, "
+                   "torch.sort, rowof_kernel, pairs_kernel (one chain per tree)",
+            shape="config A's 100,012 triangles, CUDA events, median of 5",
+            plain="the numpy builder (ops/bvh.py: build_bvh_tables + pack_child_pairs) on the "
+                  "host, then its tables uploaded",
+            library_note="no one PyTorch call builds an LBVH; the chain's two torch.sort "
+                         "calls, timed apart on as many int64 keys, in sort_ms / sort_share",
+            sort_ms=lb["sizes"]["config_a_100012"]["sort_ms"],
+            sort_share=lb["sizes"]["config_a_100012"]["sort_share"],
+            sizes=lb["sizes"], load_scene_s=lb["load_scene_s"], scene_to_ms=lb["scene_to_ms"],
+            config_a=lb["config_a"]),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

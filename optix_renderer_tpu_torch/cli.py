@@ -81,7 +81,7 @@ def cmd_render(args) -> int:
         from optix_renderer_tpu_torch.validation import run_xml_test
 
         return 0 if run_xml_test(root, device=device).ok else 1
-    scene, config, _ = build_scene(root)
+    scene, config, _ = build_scene(root, device)
     overrides = {}
     if args.spp:
         overrides["sample_count"] = args.spp
@@ -225,11 +225,12 @@ def cmd_train_denoiser(args) -> int:
     device = resolve_device(args.device)
     scenes = []
     for path in args.scene or ():
-        scene, config, _ = load_scene(path)
+        scene, config, _ = load_scene(path, device)
         scenes.append((path, scene, dataclasses.replace(config, width=args.size,
                                                         height=args.size * 3 // 4)))
     if not scenes:
-        scene, config, _ = make_cornell_box(width=args.size, height=args.size * 3 // 4, spp=1)
+        scene, config, _ = make_cornell_box(width=args.size, height=args.size * 3 // 4, spp=1,
+                                            device=device)
         scenes.append(("cornell(builtin)", scene, config))
     pairs = []
     for name, scene, config in scenes:
@@ -249,17 +250,19 @@ def cmd_scaling(args) -> int:
     `--distributed` every rank's; rank 0 writes `--output`. With one device
     the efficiency is 1 by construction: a scaling number needs more cards."""
     from optix_renderer_tpu_torch.parallel.multihost import measure_scaling
+    from optix_renderer_tpu_torch.render.render import resolve_device
 
     mesh = _distributed_mesh(args) or _local_mesh(args)
+    device = resolve_device(args.device)
     if args.scene:
         from optix_renderer_tpu_torch.scene.build import load_scene
 
-        scene, config, _ = load_scene(args.scene)
+        scene, config, _ = load_scene(args.scene, device)
     else:
         from optix_renderer_tpu_torch.scene.presets import make_cornell_box
 
         scene, config, _ = make_cornell_box(width=args.size, height=args.size * 3 // 4,
-                                            spp=args.spp)
+                                            spp=args.spp, device=device)
     config = dataclasses.replace(config, sample_count=args.spp)
     res = measure_scaling(scene, config, spp=args.spp, out_path=args.output, mesh=mesh)
     print(json.dumps(res, indent=1))

@@ -1,11 +1,21 @@
-"""LBVH for large triangle meshes: numpy build, packing, plain torch walk.
+"""LBVH for large triangle meshes: the builds, packing, plain torch walk.
 
 Counterpart of `optix_renderer_tpu/ops/bvh.py` (which imports JAX, so the
-port keeps its own copy). The build is the JAX package's numpy builder
+port keeps its own copy). The tree is the JAX package's
 (`build_lbvh_numpy`, bvh.py:176-255): triangles sorted by the 30-bit Morton
 code of their centroid, `LEAF_SIZE` per leaf, a median-split tree over the
 leaves in DFS preorder with skip (escape) links, so a walk keeps one int32
-cursor and no stack. The walk reads two packed tables:
+cursor and no stack.
+
+`build_bvh` / `build_sphere_bvh` (after the JAX functions of those names)
+build it on a device: on CUDA by the chain of `csrc/lbvh.cu`
+(`ops/cuda/lbvh.py: lbvh_build`, the counterpart of the JAX package's C++
+builder `native/lbvh.cpp`), on the CPU by the numpy builder here
+(`build_bvh_tables` / `build_sphere_tables` + `pack_child_pairs`), which is
+the kernel's plain version: the two give the same tables bit for bit. Both
+follow numpy's tie rule for min / max (ties keep the second operand); the
+JAX C++ builder's `std::min` keeps the first, so its boxes can differ from
+both in the sign of a zero bound. The walk reads two packed tables:
 
 * `packed [Nn, 8]` — min(3) | max(3) | skip bits | first bits per node; the
   two links are int32 bits stored in the float32 row (read them by bit
@@ -279,6 +289,71 @@ def pairs_depth(pairs) -> int:
         kids = refs[frontier].ravel()
         frontier = kids[kids >= 0].astype(np.int64)
     return depth
+
+
+def lbvh_levels(n_leaves: int) -> int:
+    """Levels of the median-split tree over `n_leaves` leaves, root and
+    leaves included: the larger half has ⌈k/2⌉ leaves, so 1 + ⌈log2 k⌉."""
+    return 1 + (n_leaves - 1).bit_length()
+
+
+def lbvh_depth(n_leaves: int) -> int:
+    """`pairs_depth` of that tree in closed form; a root that is a leaf
+    still has its one pair row, so at least 2."""
+    return max(2, lbvh_levels(n_leaves))
+
+
+def _host_f32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _device_f32(x, device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(device=device, dtype=torch.float32).contiguous()
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
+
+
+def _host_bvh(packed: np.ndarray, leaf: np.ndarray):
+    from optix_renderer_tpu_torch.scene.data import Bvh
+
+    pairs = pack_child_pairs(packed)
+    return Bvh(packed=torch.from_numpy(packed), leaf=torch.from_numpy(leaf),
+               pairs=torch.from_numpy(pairs), depth=pairs_depth(pairs))
+
+
+def _device_bvh(device, v0, v1, v2, radius=None):
+    from optix_renderer_tpu_torch.ops.cuda.lbvh import lbvh_build
+    from optix_renderer_tpu_torch.scene.data import Bvh
+
+    packed, leaf, pairs, depth = lbvh_build(v0, v1, v2, radius)
+    return Bvh(packed=packed, leaf=leaf, pairs=pairs, depth=depth)
+
+
+def build_bvh(v0, v1, v2, device):
+    """The triangles' LBVH (corners v0, v1, v2 [T, 3], numpy or tensors) →
+    `scene.data.Bvh` on `device`: on CUDA built by `csrc/lbvh.cu`, on the
+    CPU by `build_bvh_tables` + `pack_child_pairs`; the same tables."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return _device_bvh(device, *(_device_f32(x, device) for x in (v0, v1, v2)))
+    if device.type != "cpu":
+        raise ValueError(f"build_bvh builds on cpu or cuda, got {device}")
+    return _host_bvh(*build_bvh_tables(*(_host_f32(x) for x in (v0, v1, v2))))
+
+
+def build_sphere_bvh(center, radius, device):
+    """The spheres' LBVH (center [S, 3], radius [S]) → `scene.data.Bvh` on
+    `device`: on CUDA `csrc/lbvh.cu` over (c − r, c + r, c), on the CPU
+    `build_sphere_tables` + `pack_child_pairs`; the same tables."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        c, r = _device_f32(center, device), _device_f32(radius, device)
+        return _device_bvh(device, c - r[:, None], c + r[:, None], c, r)
+    if device.type != "cpu":
+        raise ValueError(f"build_sphere_bvh builds on cpu or cuda, got {device}")
+    return _host_bvh(*build_sphere_tables(_host_f32(center), _host_f32(radius)))
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,7 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("mega.cuh", "walk.cuh", "pathk.cu", "isect.cu", "probes.cu", "track.cu")
+SOURCES = ("mega.cuh", "walk.cuh", "pathk.cu", "isect.cu", "probes.cu", "track.cu", "lbvh.cu")
 UNITS = tuple(name for name in SOURCES if name.endswith(".cu"))
 # no --use_fast_math: the samplers go through logf/sinf/cosf and must keep
 # full-precision results to track the plain version per pixel.
@@ -163,6 +163,27 @@ def load() -> ctypes.CDLL:
             vp,  # stream
         ]
         lib.track_launch.restype = i
+        ll = ctypes.c_longlong
+        lib.lbvh_keys_launch.argtypes = [
+            vp, vp, vp, ll,  # v0, v1, v2 [n, 3], n
+            vp, vp, vp,  # scratch centroids [n, 3], scratch bounds (6 uint32), out keys [n]
+            vp,  # stream
+        ]
+        lib.lbvh_keys_launch.restype = i
+        lib.lbvh_tree_launch.argtypes = [
+            vp, vp, vp, vp, ll,  # v0, v1, v2, radius (or null), n
+            vp,  # the keys, sorted
+            vp, vp, vp,  # out packed, leaf, pair-order keys
+            i,  # the tree's levels
+            vp,  # stream
+        ]
+        lib.lbvh_tree_launch.restype = i
+        lib.lbvh_pairs_launch.argtypes = [
+            vp, vp, vp, i,  # packed, the pair-order keys sorted, scratch row_of, n_leaves
+            vp,  # out pairs
+            vp,  # stream
+        ]
+        lib.lbvh_pairs_launch.restype = i
         lib.pathk_error_string.argtypes = [i]
         lib.pathk_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from optix_renderer_tpu_torch.core import rng
+from optix_renderer_tpu_torch.scene.data import host_snapshot
 
 BIG = 3.4e38
 EPS = 1e-4
@@ -149,7 +150,6 @@ def mega_unsupported(scene, config) -> str | None:
     (`render.scan_step`), which raises where it cannot render them either.
     Each reason names what the kernel does not cover.
     """
-    npy = lambda t: t.detach().cpu().numpy()
     g = scene.geometry
     t_cnt = int(g.tri_v0.shape[0])
     if t_cnt == 0:
@@ -162,32 +162,33 @@ def mega_unsupported(scene, config) -> str | None:
     if n_sph > MAX_SPHERES:
         return (f"more than {MAX_SPHERES} spheres take the scan path, whose spheres' LBVH walk "
                 "(isect_spheres) the path kernel lacks, as the JAX kernel does")
-    if n_sph and np.any(npy(scene.shapes.emitter)[npy(g.sph_shape)] >= 0):
+    sh, b, em = scene.shapes, scene.bsdfs, scene.emitters
+    (sh_em, sph_shape, sh_int, sh_ext, sh_ntex, bt, used, tex_type, et, geom_kind) = (
+        x.numpy() for x in host_snapshot((
+            sh.emitter, g.sph_shape, sh.interior_medium, sh.exterior_medium, sh.normal_tex,
+            b.type, b.albedo_tex, scene.textures.type, em.type, em.geom_kind)))
+    if n_sph and np.any(sh_em[sph_shape] >= 0):
         return "sphere-area emitters take the scan path"
     if config.integrator not in ("path_mis", "path_mats"):
         return f"integrator '{config.integrator}' takes the scan path"
-    sh = scene.shapes
-    if np.any(npy(sh.interior_medium) >= 0) or np.any(npy(sh.exterior_medium) >= 0):
+    if np.any(sh_int >= 0) or np.any(sh_ext >= 0):
         return "a shape with an interior or exterior medium: media take the scan path"
     if scene.ambient_medium >= 0:
         return "an ambient medium: media take the scan path"
     if config.adaptive:
         return "adaptive configs take the scan path, as in the JAX render()"
-    if np.any(npy(scene.shapes.normal_tex) >= 0):
+    if np.any(sh_ntex >= 0):
         return "normal maps take the scan path"
-    bt = npy(scene.bsdfs.type)
     if bt.size and bt.max() > BSDF_DISNEY:
         return f"BSDF type {int(bt.max())} takes the scan path"
-    used = npy(scene.bsdfs.albedo_tex)
     used = used[used >= 0]
-    if used.size and np.any(npy(scene.textures.type)[used] != 0):
+    if used.size and np.any(tex_type[used] != 0):
         return "checkerboard / image textures take the scan path"
-    et = npy(scene.emitters.type)
     if et.size == 0:
         return "a scene without an emitter table takes the scan path"
     if np.any(~np.isin(et, (EM_POINT, EM_SPOT, EM_AREA, EM_ENVMAP, EM_DIRECTIONAL))):
         return "volume emitters take the scan path"
-    if np.any((et == EM_AREA) & (npy(scene.emitters.geom_kind) != 1)):
+    if np.any((et == EM_AREA) & (geom_kind != 1)):
         return "area emitters on other shapes than meshes take the scan path"
     img = scene.envmap.img
     if scene.envmap_emitter >= 0 and img.shape[0] * img.shape[1] != 1:

@@ -60,6 +60,7 @@ The pcg32 draws are consumed in the TPU kernel's order: seeding, jitter 2
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
@@ -98,6 +99,7 @@ from optix_renderer_tpu_torch.ops.cuda.mega import (
     vwhere,
     where,
 )
+from optix_renderer_tpu_torch.scene.data import host_snapshot
 
 VPU_MAX_TRIS = 64  # above this, the medium branch (the JAX kernel's MXU branch)
 OUT_ROWS = 16
@@ -136,6 +138,11 @@ def pathk_eligible(scene, config) -> bool:
     return pathk_unsupported(scene, config) is None
 
 
+# the scene's tables that the packing reads (`build_mega_tables` included)
+_PACKED = ("geometry", "shapes", "bsdfs", "textures", "emitters", "emitter_pick", "camera",
+           "envmap")
+
+
 def build_pathk_tables(scene, config, device="cpu"):
     """Host packing → (dict of float32 tensors on `device`, static metadata).
 
@@ -146,8 +153,12 @@ def build_pathk_tables(scene, config, device="cpu"):
     [n_leaves, 40] (`ops/bvh.py`; one zero row each in the small branch).
     The LBVH is the scene's own when it has one; else it is built here from
     v0 | e1 | e2, so that every leaf slot holds its row's columns 0:9 bit
-    for bit.
+    for bit. A scene on the card comes to the host in one snapshot of the
+    tables it reads (`host_snapshot`: one wait).
     """
+    if scene.geometry.tri_v0.is_cuda:
+        scene = dataclasses.replace(scene,
+                                    **host_snapshot({k: getattr(scene, k) for k in _PACKED}))
     npy = lambda t: t.detach().cpu().numpy()
     g = scene.geometry
     t_cnt = int(g.tri_v0.shape[0])

@@ -58,7 +58,8 @@ def main() -> None:
                                local_devices=args.local_devices)
     rank = dist.get_rank()
     assert dist.get_world_size() == args.num_processes
-    scene, config, _ = make_cornell_box(width=16, height=12, spp=4, integrator="path_mis")
+    scene, config, _ = make_cornell_box(width=16, height=12, spp=4, integrator="path_mis",
+                                        device=entries[0])
     config = dataclasses.replace(config, max_depth=3)
 
     mesh = make_multihost_mesh(devices=entries)

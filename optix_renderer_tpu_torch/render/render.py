@@ -31,6 +31,7 @@ from optix_renderer_tpu_torch.ops import camera as camera_ops
 from optix_renderer_tpu_torch.render import film
 from optix_renderer_tpu_torch.render import sampler as smp
 from optix_renderer_tpu_torch.scene.data import RenderConfig, SceneData
+from optix_renderer_tpu_torch.utils.device import resolve_device
 
 # Upper bound on rays in flight per chunk: at 2^19 lanes an 800×600 frame is
 # one chunk per sample round, as in the JAX package (render.py:35).
@@ -95,26 +96,23 @@ def load_checkpoint(path: str, config: RenderConfig, device="cuda"):
 def _layers_out(acc) -> dict[str, np.ndarray]:
     """[3,H,W,4] accumulator → numpy layers. On the path-kernel path channel 3
     counts samples, so `weights` is the number of samples per pixel; on the
-    scan path it sums filter weights."""
-    a = acc.detach().cpu().numpy()
+    scan path it sums filter weights. The division runs where the film lies
+    (float32 division rounds alike in torch and numpy, so the layers are the
+    host formula's bit for bit); a film on the card then comes to the host
+    in one wait, its copies queued into pinned memory."""
+    a = acc.detach()
     w = a[..., 3:4]
-    layers = np.where(w > 1e-9, a[..., :3] / np.maximum(w, 1e-9), 0.0)
+    layers = torch.where(w > 1e-9, a[..., :3] / torch.clamp_min(w, 1e-9), 0.0)
+    layers, weights = (x.to("cpu", non_blocking=True) for x in (layers, a[0, ..., 3]))
+    if a.is_cuda:
+        torch.cuda.synchronize(a.device)
+    layers = layers.numpy()
     return {
         "composite": layers[0],
         "albedo": layers[1],
         "normal": layers[2],
-        "weights": a[0, ..., 3],
+        "weights": weights.numpy(),
     }
-
-
-def resolve_device(device) -> torch.device:
-    """torch.device for `device`; a CUDA device without a GPU raises."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() is False")
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device}")
-    return device
 
 
 def _round_layers(scene: SceneData, config: RenderConfig, pixel_ids, sample_idx):

@@ -13,7 +13,10 @@ per-area-light triangle CDFs (mesh.cpp:15-46), the volume-light tables,
 the media's corner stacks and the envmap's tables (`ops/envmap.py`) as
 the JAX builder does, row for row, so both produce the same tables, and
 from 257 triangles on the LBVH tables of the general path (`ops/bvh.py`),
-and from 65 spheres on the spheres' LBVH (JAX build.py:615-618).
+and from 65 spheres on the spheres' LBVH (JAX build.py:615-618). The
+scene lands on the device the caller names, as the JAX `build_scene` puts
+its arrays on the default device: the LBVHs are built there (on CUDA by
+`csrc/lbvh.cu`) and every other table is built on the host and moved once.
 A scene's `<denoiser>` lands in `RenderConfig.denoiser` / `dprops`; its
 photon map stays empty until `render.preprocess` builds it. The root may
 also be a `<test>` (`validation/xmltest.py` runs it); `build_bsdf_table`
@@ -37,7 +40,6 @@ from optix_renderer_tpu_torch.scene import volume_io
 from optix_renderer_tpu_torch.scene.data import (
     Bsdfs,
     BsdfType,
-    Bvh,
     Camera,
     EmitterGeom,
     Emitters,
@@ -56,6 +58,7 @@ from optix_renderer_tpu_torch.scene.data import (
     corner_stack,
     empty_photon_map,
 )
+from optix_renderer_tpu_torch.utils.device import resolve_device
 from optix_renderer_tpu_torch.scene.parser import SceneNode, load_from_xml
 from optix_renderer_tpu_torch.utils import imageio as iio
 
@@ -84,10 +87,11 @@ def _uv_tangents(v0, v1, v2, uv0, uv1, uv2) -> np.ndarray:
 
 
 class _Builder:
-    def __init__(self, root: SceneNode):
+    def __init__(self, root: SceneNode, device: torch.device):
         if root.tag not in ("scene", "test"):
             raise SceneBuildError(f"root must be <scene> or <test>, got <{root.tag}>")
         self.root = root
+        self.device = device
         self.origin = Path(root.origin or ".")
         self.tri_v, self.tri_n, self.tri_uv, self.tri_shape = [], [], [], []
         self.spheres = []  # (center, radius, shape_id)
@@ -471,14 +475,13 @@ class _Builder:
             sph_center = np.zeros((0, 3), np.float32)
             sph_radius = np.zeros(0, np.float32)
             sph_shape = np.zeros(0, np.int32)
-        def tree(packed, leaf):
-            return Bvh(packed=_t(packed), leaf=_t(leaf), pairs=_t(bvh_mod.pack_child_pairs(packed)))
-
+        # the LBVHs are built on the scene's device (ops/bvh.py: on CUDA by
+        # csrc/lbvh.cu); every other table on the host, moved once at the end
         bvh = sph_bvh = None
         if len(tri_v0) >= bvh_mod.MIN_TRIS_FOR_BVH:
-            bvh = tree(*bvh_mod.build_bvh_tables(tri_v0, tri_v1, tri_v2))
+            bvh = bvh_mod.build_bvh(tri_v0, tri_v1, tri_v2, self.device)
         if len(sph_center) >= bvh_mod.MIN_SPHS_FOR_BVH:
-            sph_bvh = tree(*bvh_mod.build_sphere_tables(sph_center, sph_radius))
+            sph_bvh = bvh_mod.build_sphere_bvh(sph_center, sph_radius, self.device)
         geometry = Geometry(
             tri_v0=_t(tri_v0), tri_e1=_t(tri_v1 - tri_v0), tri_e2=_t(tri_v2 - tri_v0),
             tri_n0=_t(tri_n0), tri_n1=_t(tri_n1), tri_n2=_t(tri_n2),
@@ -642,23 +645,28 @@ class _Builder:
             envmap_emitter=envmap_emitter, envmap=envmap, envmap_pick=envmap_pick,
             ambient_medium=ambient_medium, photons=empty_photon_map(),
         )
-        return scene, config, {"integrator_props": integrator.props if integrator else None}
+        extras = {"integrator_props": integrator.props if integrator else None}
+        return scene.to(self.device), config, extras
 
 
-def build_scene(root: SceneNode) -> tuple[SceneData, RenderConfig, dict]:
-    return _Builder(root).build()
+def build_scene(root: SceneNode, device="cuda") -> tuple[SceneData, RenderConfig, dict]:
+    """SceneNode tree → (SceneData, RenderConfig, extras), the scene's
+    tensors on `device` (the card unless the caller asks for the CPU;
+    "cuda" without a GPU raises)."""
+    return _Builder(root, resolve_device(device)).build()
 
 
-def load_scene(filename) -> tuple[SceneData, RenderConfig, dict]:
-    """XML file → (SceneData, RenderConfig, extras)."""
-    return build_scene(load_from_xml(filename))
+def load_scene(filename, device="cuda") -> tuple[SceneData, RenderConfig, dict]:
+    """XML file → (SceneData, RenderConfig, extras) on `device`, as
+    `build_scene`."""
+    return build_scene(load_from_xml(filename), device)
 
 
 def build_bsdf_table(nodes, origin=".") -> tuple[Bsdfs, Textures]:
     """The BSDF and texture tables of a list of <bsdf> nodes, row i from
     nodes[i], for the ttest / chi2test runners (ttest.cpp:128-134,
     chi2test.cpp:118-124; build.py:1015 of the JAX package)."""
-    b = _Builder(SceneNode(tag="scene", type="", origin=str(origin)))
+    b = _Builder(SceneNode(tag="scene", type="", origin=str(origin)), torch.device("cpu"))
     for n in nodes:
         b.build_bsdf(n)
     return b.bsdf_texture_tables()

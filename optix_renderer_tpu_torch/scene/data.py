@@ -129,6 +129,32 @@ class _Tables:
         return self._map(lambda v: v.detach())
 
 
+def host_snapshot(x):
+    """`x` (a table, a tensor, or a tuple / dict of them) with every tensor
+    detached on the host, in one wait: each copy from a card is queued into
+    pinned memory, then each card is synchronized once. The host packing
+    of a scene that lives on the card reads it so, not field by field."""
+    cards = set()
+
+    def each(v):
+        if isinstance(v, torch.Tensor):
+            if v.is_cuda:
+                cards.add(v.device)
+            return v.detach().to("cpu", non_blocking=True)
+        if isinstance(v, (_Tables, PhotonMap)):
+            return v._map(each)
+        if isinstance(v, dict):
+            return {k: each(u) for k, u in v.items()}
+        if isinstance(v, (tuple, list)):
+            return type(v)(each(u) for u in v)
+        return v
+
+    out = each(x)
+    for card in cards:
+        torch.cuda.synchronize(card)
+    return out
+
+
 @dataclass(frozen=True)
 class Bvh(_Tables):
     """Packed threaded LBVH over the triangles, or over the spheres (ops/bvh.py)."""
@@ -140,7 +166,9 @@ class Bvh(_Tables):
     # [n_pairs,16] f32: the same tree as child pairs (ops/bvh.pack_child_pairs),
     # the table of the general path's kernel
     pairs: torch.Tensor
-    depth: int = 0  # the tree's levels (ops/bvh.pairs_depth); computed when 0
+    # the tree's levels (ops/bvh.pairs_depth), as the builders return it;
+    # computed from `pairs` when 0, which copies the table to the host
+    depth: int = 0
 
     def __post_init__(self):
         if self.depth == 0:

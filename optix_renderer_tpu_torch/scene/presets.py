@@ -105,14 +105,15 @@ def cornell_box_xml(dirpath, width: int = 800, height: int = 600, spp: int = 32,
 
 
 def make_cornell_box(width: int = 800, height: int = 600, spp: int = 32,
-                     integrator: str = "path_mis"):
+                     integrator: str = "path_mis", device="cuda"):
     """Cornell box with red/green side walls, a mirror and a glass sphere and
     a rectangular area light in the ceiling (12 triangles, 2 spheres).
-    Returns (SceneData, RenderConfig, extras) like `scene.build.load_scene`."""
+    Returns (SceneData, RenderConfig, extras) on `device` like
+    `scene.build.load_scene`."""
     from optix_renderer_tpu_torch.scene.build import load_scene
 
     with tempfile.TemporaryDirectory(prefix="optix_torch_scene_") as tmp:
-        return load_scene(cornell_box_xml(tmp, width, height, spp, integrator))
+        return load_scene(cornell_box_xml(tmp, width, height, spp, integrator), device)
 
 
 def sphere_cornell_xml(dirpath, width: int = 800, height: int = 600, spp: int = 4,
@@ -159,13 +160,15 @@ def absorbing_sphere_xml(dirpath, sigma_a: float = 0.5, radius: float = 1.0, wid
 
 
 def make_absorbing_sphere(sigma_a: float = 0.5, radius: float = 1.0, width: int = 64,
-                          height: int = 64, spp: int = 8, integrator: str = "path_vol_mis"):
-    """`absorbing_sphere_xml` loaded; returns (SceneData, RenderConfig, extras)."""
+                          height: int = 64, spp: int = 8, integrator: str = "path_vol_mis",
+                          device="cuda"):
+    """`absorbing_sphere_xml` loaded on `device`; returns (SceneData,
+    RenderConfig, extras)."""
     from optix_renderer_tpu_torch.scene.build import load_scene
 
     with tempfile.TemporaryDirectory(prefix="optix_torch_scene_") as tmp:
         return load_scene(absorbing_sphere_xml(tmp, sigma_a, radius, width, height, spp,
-                                               integrator))
+                                               integrator), device)
 
 
 # config H's pass-through box: the middle of the room (outward winding, as
@@ -290,13 +293,16 @@ def tessellated_cornell_xml(dirpath, width: int = 800, height: int = 600, spp: i
 
 
 def make_tessellated_cornell(width: int = 800, height: int = 600, spp: int = 8,
-                             integrator: str = "path_mis", nu: int = 200, nv: int = 126):
+                             integrator: str = "path_mis", nu: int = 200, nv: int = 126,
+                             device="cuda"):
     """The Cornell box with its spheres as dense meshes (the LBVH path).
-    Returns (SceneData, RenderConfig, extras) like `scene.build.load_scene`."""
+    Returns (SceneData, RenderConfig, extras) on `device` like
+    `scene.build.load_scene`."""
     from optix_renderer_tpu_torch.scene.build import load_scene
 
     with tempfile.TemporaryDirectory(prefix="optix_torch_scene_") as tmp:
-        return load_scene(tessellated_cornell_xml(tmp, width, height, spp, integrator, nu, nv))
+        return load_scene(tessellated_cornell_xml(tmp, width, height, spp, integrator, nu, nv),
+                          device)
 
 
 def textured_cornell_xml(dirpath, width: int = 800, height: int = 600, spp: int = 4,

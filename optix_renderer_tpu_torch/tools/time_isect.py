@@ -10,10 +10,11 @@ rays toward the ceiling light from the first hits of 600,000 further
 camera rays. Then times `isect_bvh` closest hit on the camera and the
 bounce rays and any hit on the shadow rays. Beside each it prints the rows
 (or nodes) read and the leaves tested per ray, and ptxas' registers and
-spills of the kernel instances. Then the renders around the kernel:
-config A (4 spp, depth 8, gaussian), `bench.py`'s 400x300 config of the
-same scene, and config M (the 8,012-triangle scene of the path kernel's
-medium branch, 16 spp, depth 16), which shares the scene build.
+spills of the kernel instances. Then the renders, in `chip_smoke.py`'s
+order: phase 5's Cornell box (64 spp, depth 16, gaussian; the path
+kernel's small branch), config A (4 spp, depth 8, gaussian), `bench.py`'s
+400x300 config of the same scene, and config M (the 8,012-triangle scene
+of the path kernel's medium branch, 16 spp, depth 16).
 
 With `--brute`: times `isect_brute`, the brute-force sweep, on 480,000 rays
 against 12, 64 and 252 triangles (`brute_sets`), each beside its bound,
@@ -25,8 +26,14 @@ mitchell filter, 800x600, depth 16, 4 spp) and config B-252 (the same at
 
 Kernel times are device time: CUDA events around each launch behind a
 spin (`device_ms`), `reps` launches after a warm-up, their median and
-each of them. Renders run end to end on the host's clock with the film on
-the host, `reps` times after a warm-up. `--root` imports the package from
+each of them. Each render cell is built `reps` times (the preset's
+`load_scene`, timed), then rendered end to end on the host's clock with
+the film on the host, `reps` times after a warm-up; a path-kernel cell's
+table packing (`mega_step`) and the film readout (`_layers_out` of an
+800x600 film) are timed alone after it. A checkout whose presets take a
+device builds the cells on the card (`<cell>_card`, the default), then
+again on the host (`<cell>_host`, which `render()` copies to the card
+each time); an older one on the host. `--root` imports the package from
 another checkout (for instance a parent commit unpacked with `git
 archive`), so that two versions can be timed in one run on one card; a
 checkout whose `isect_bvh` takes the packed skip-link table (before the
@@ -162,7 +169,7 @@ def brute_sets(isect, dev, rng) -> dict:
 
     f32 = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(dev)
     rays = lambda r: (r.o, r.d, r.mint, r.maxt)
-    scene, cfg, _ = make_cornell_box(800, 600, 4, "path_mis")
+    scene, cfg, _ = make_cornell_box(800, 600, 4, "path_mis", **device_kw(make_cornell_box, dev))
     sets = {"t12_camera": (scene.geometry.to(dev).tri_table,
                            rays(camera_rays(scene, cfg, MAIN_RAYS, rng, dev)))}
     soup = np.concatenate([rng.uniform(-1, 1, (64, 3)), rng.normal(0, 0.2, (64, 6))], axis=1)
@@ -171,7 +178,8 @@ def brute_sets(isect, dev, rng) -> dict:
                                     f32(d / np.linalg.norm(d, axis=1, keepdims=True)),
                                     f32(np.full(MAIN_RAYS, 1e-4)),
                                     f32(np.full(MAIN_RAYS, 3.4e38))))
-    scene, cfg, _ = make_tessellated_cornell(800, 600, 4, "path_mis", nu=10, nv=7)
+    scene, cfg, _ = make_tessellated_cornell(800, 600, 4, "path_mis", nu=10, nv=7,
+                                             **device_kw(make_tessellated_cornell, dev))
     geom = scene.geometry.to(dev)
     sets["t252_camera"] = (geom.tri_table, rays(pixel_rays(scene, cfg, 1, rng, dev)))
     more = pixel_rays(scene, cfg, 2, rng, dev)
@@ -350,7 +358,8 @@ def main() -> int:
     if args.brute:
         print(json.dumps(_brute(args, isect, _build, render, dev, smi)))
         return 0
-    scene, cfg, _ = make_tessellated_cornell(800, 600, 4, "path_mis")
+    scene, cfg, _ = make_tessellated_cornell(800, 600, 4, "path_mis",
+                                             **device_kw(make_tessellated_cornell, dev))
     cfg = dataclasses.replace(cfg, max_depth=8, rfilter="gaussian")
     tree = scene.geometry.to(dev).bvh
     pairs = hasattr(bvh_mod, "pack_child_pairs")
@@ -368,7 +377,7 @@ def main() -> int:
                      "rows_per_ray": float(vis[0]), "leaves_per_ray": float(vis[1])}
         if hasattr(isect, "last_launch"):
             res[name]["launch"] = isect.last_launch()
-    res["renders"] = _renders(render, make_tessellated_cornell, scene, cfg, dev, args.reps)
+    res["renders"] = _renders(render, dev, args.reps)
     print(json.dumps(res))
     return 0
 
@@ -393,48 +402,91 @@ def _brute(args, isect, _build, render, dev, smi) -> dict:
                      **brute_bound(rays[0].shape[0], tri.shape[0])}
         if "kernel" in inspect.signature(isect.last_launch).parameters:
             res[name]["launch"] = isect.last_launch("brute")
-    cells = {}
-    for name, (scene, cfg, _) in (("config_b", make_cornell_box(800, 600, 4, "path_mis")),
-                                  ("config_b252", make_tessellated_cornell(800, 600, 4, "path_mis",
-                                                                           nu=10, nv=7))):
-        cells[name] = (scene, dataclasses.replace(cfg, max_depth=16, rfilter="mitchell"), 1, 4)
+    mitchell = {"max_depth": 16, "rfilter": "mitchell"}
+    cells = {"config_b": (lambda **kw: make_cornell_box(800, 600, 4, "path_mis", **kw),
+                          mitchell, 1, 4),
+             "config_b252": (lambda **kw: make_tessellated_cornell(800, 600, 4, "path_mis",
+                                                                   nu=10, nv=7, **kw),
+                             mitchell, 1, 4)}
     res["renders"] = _time_renders(render, cells, dev, args.reps)
     return res
 
 
-def _renders(render, make_tessellated_cornell, scene_a, cfg_a, dev, reps: int) -> dict:
-    """Configs A, bench.py's 400x300 and M through `_time_renders`."""
-    import dataclasses
+def device_kw(make, dev) -> dict:
+    """{"device": dev} for a loader or preset that takes a device (scenes
+    built on their device); {} for an older checkout's, which builds on the
+    host."""
+    return {"device": dev} if "device" in inspect.signature(make).parameters else {}
 
-    scene_q, cfg_q, _ = make_tessellated_cornell(400, 300, 1, "path_mis")
-    scene_m, cfg_m, _ = make_tessellated_cornell(800, 600, 16, "path_mis", nu=40, nv=51)
-    cells = {"config_a": (scene_a, cfg_a, 1, 4),
-             "bench_400x300": (scene_q, dataclasses.replace(cfg_q, max_depth=8), 4, 4),
-             "config_m": (scene_m, dataclasses.replace(cfg_m, max_depth=16, rfilter="gaussian"),
-                          1, 16)}
+
+def _renders(render, dev, reps: int) -> dict:
+    """Phase 5's Cornell box, config A, bench.py's 400x300 and config M,
+    in chip_smoke.py's order, through `_time_renders`."""
+    from optix_renderer_tpu_torch.scene.presets import make_cornell_box, make_tessellated_cornell
+
+    gaussian = {"max_depth": 16, "rfilter": "gaussian"}
+    cells = {
+        "cornell": (lambda **kw: make_cornell_box(800, 600, 64, "path_mis", **kw), gaussian,
+                    16, 64),
+        "config_a": (lambda **kw: make_tessellated_cornell(800, 600, 4, "path_mis", **kw),
+                     {**gaussian, "max_depth": 8}, 1, 4),
+        "bench_400x300": (lambda **kw: make_tessellated_cornell(400, 300, 1, "path_mis", **kw),
+                          {"max_depth": 8}, 4, 4),
+        "config_m": (lambda **kw: make_tessellated_cornell(800, 600, 16, "path_mis", nu=40,
+                                                           nv=51, **kw), gaussian, 1, 16),
+    }
     return _time_renders(render, cells, dev, reps)
 
 
 def _time_renders(render, cells, dev, reps: int) -> dict:
-    """Median wall seconds and Mpaths/s of `reps` renders of each cell
-    {name: (scene, cfg, warm-up spp, spp)}, after a warm-up render, ending
-    with the film on the host."""
+    """Each cell {name: (make, config fields, warm-up spp, spp)}, where
+    `make(**kw)` builds (scene, cfg, extras): the build's seconds, `reps`
+    times; the render's median wall seconds and Mpaths/s over `reps`
+    renders after a warm-up, each ending with the film on the host; for a
+    path-kernel cell its table packing alone; then the film readout alone.
+    A checkout whose presets take a device builds every cell on the card
+    (`<name>_card`), then every cell on the host (`<name>_host`), so its
+    default runs in the same order of cells as an older checkout's, which
+    builds on the host."""
+    import dataclasses
     import time
 
     import torch
 
+    from optix_renderer_tpu_torch.ops.cuda.pathk import pathk_eligible
+    from optix_renderer_tpu_torch.render.mega_render import mega_step
+    from optix_renderer_tpu_torch.render.render import _layers_out
+    from optix_renderer_tpu_torch.scene.presets import make_cornell_box
+
+    wheres = {"host": {}}
+    if device_kw(make_cornell_box, dev):
+        wheres = {"card": {"device": dev}, "host": {"device": "cpu"}}
+
+    def secs(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    film = torch.zeros((3, 600, 800, 4), device=dev)
     out = {}
-    for name, (scene, cfg, warm_spp, spp) in cells.items():
-        render(scene, cfg, sample_count=warm_spp, device=dev)
-        walls = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            render(scene, cfg, sample_count=spp, device=dev)  # returns the film on the host
-            walls.append(time.perf_counter() - t0)
-        wall = float(np.median(walls))
-        out[name] = {"s_each": walls, "s_median": wall,
-                     "mpaths_median": cfg.width * cfg.height * spp / wall / 1e6}
+    for where, kw in wheres.items():
+        for name, (make, fields, warm_spp, spp) in cells.items():
+            rec = {"load_s": [secs(lambda: make(**kw)) for _ in range(reps)]}
+            scene, cfg, _ = make(**kw)
+            cfg = dataclasses.replace(cfg, **fields)
+            render(scene, cfg, sample_count=warm_spp, device=dev)
+            # the film on the host inside each render's clock
+            rec["s_each"] = [secs(lambda: render(scene, cfg, sample_count=spp, device=dev))
+                             for _ in range(reps)]
+            if pathk_eligible(scene, cfg):
+                rec["pack_s"] = [secs(lambda: mega_step(scene, cfg, dev)) for _ in range(reps)]
+            rec["readout_s"] = [secs(lambda: _layers_out(film)) for _ in range(reps)]
+            for k in [k for k in rec if k.endswith("_s") or k == "s_each"]:
+                rec[f"{k.removesuffix('_each')}_median"] = float(np.median(rec[k]))
+            rec["mpaths_median"] = cfg.width * cfg.height * spp / rec["s_median"] / 1e6
+            out[f"{name}_{where}"] = rec
     return out
 
 

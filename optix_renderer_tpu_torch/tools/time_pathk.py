@@ -28,6 +28,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import heapq
+import inspect
 import json
 import subprocess
 import sys
@@ -96,8 +97,12 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    cells = {"cornell": make_cornell_box(800, 600, 16, "path_mis")[:2],
-             "config_m": make_tessellated_cornell(800, 600, 16, "path_mis", nu=40, nv=51)[:2]}
+    # scenes on the card where the presets take a device (an older checkout
+    # builds them on the host)
+    kw = {"device": dev} if "device" in inspect.signature(make_cornell_box).parameters else {}
+    cells = {"cornell": make_cornell_box(800, 600, 16, "path_mis", **kw)[:2],
+             "config_m": make_tessellated_cornell(800, 600, 16, "path_mis", nu=40, nv=51,
+                                                   **kw)[:2]}
     res = {"root": args.root, "gpu": smi}
     for name, (scene, cfg) in cells.items():
         cfg = dataclasses.replace(cfg, max_depth=16, rfilter="gaussian")

@@ -47,7 +47,7 @@ def main() -> None:
     if not Path(shard.__file__).resolve().is_relative_to(Path(args.root).resolve()):
         raise SystemExit(f"imported {shard.__file__}, not the package under {args.root}")
     dev = torch.device("cuda")
-    scene, cfg, _ = make_cornell_box(800, 600, 1, "path_mis")
+    scene, cfg, _ = make_cornell_box(800, 600, 1, "path_mis", device=dev)
     cfg = dataclasses.replace(cfg, max_depth=16)
     scene = scene.to(dev)
     ids = torch.arange(cfg.width * cfg.height, device=dev)

@@ -173,7 +173,7 @@ def _scene_luminances(scene_node, si: int, n: int, device) -> np.ndarray:
     from optix_renderer_tpu_torch.render.render import MAX_LANES, preprocess
     from optix_renderer_tpu_torch.scene.build import build_scene
 
-    scene, config, _ = build_scene(scene_node)
+    scene, config, _ = build_scene(scene_node, device)
     # the reference's path loop is unbounded with RR (ttest compares against
     # analytic series like 1/(1−a)); 16 bounces truncate an a=0.8 furnace
     # by a^16/(1−a) ≈ 3 %, so the depth is at least 64

@@ -132,7 +132,7 @@ def test_adaptive_matches_uniform_mean():
 def test_adaptive_weights_written():
     """The weight channel records where samples landed, and the film is
     finite."""
-    scene, config, _ = make_cornell_box(16, 12, 6, "path_mis")
+    scene, config, _ = make_cornell_box(16, 12, 6, "path_mis", device="cpu")
     config = dataclasses.replace(config, adaptive=True, adaptive_uniform_rounds=2, max_depth=3)
     out = render_adaptive(scene, config, device="cpu")
     assert out["weights"].shape == (12, 16) and out["variance"].shape == (12, 16)
@@ -181,7 +181,7 @@ def test_render_of_an_adaptive_config_is_the_uniform_scan_render(tmp_path):
     from optix_renderer_tpu_torch.scene.build import load_scene
 
     scene, config, _ = load_scene(cornell_box_xml(tmp_path, 16, 12, 2, "path_mis",
-                                                  sampler="adaptive"))
+                                                  sampler="adaptive"), device="cpu")
     assert config.adaptive and not pathk_eligible(scene, config)
     config = dataclasses.replace(config, max_depth=3)
     uniform = dataclasses.replace(config, adaptive=False)

@@ -63,17 +63,17 @@ def test_cpu_render_does_not_import_jax(tmp_path):
         "from optix_renderer_tpu_torch.scene.presets import make_cornell_box\n"
         "from optix_renderer_tpu_torch.scene.presets import make_tessellated_cornell\n"
         "from optix_renderer_tpu_torch.render.render import render\n"
-        "s, c, _ = make_cornell_box(8, 6, 1)\n"
+        "s, c, _ = make_cornell_box(8, 6, 1, device='cpu')\n"
         "out = render(s, c, sample_count=1, device='cpu')\n"
         "assert out['composite'].shape == (6, 8, 3)\n"
-        "s, c, _ = make_tessellated_cornell(8, 6, 1, nu=12, nv=7)\n"
+        "s, c, _ = make_tessellated_cornell(8, 6, 1, nu=12, nv=7, device='cpu')\n"
         "assert c.n_tris == 300 and s.geometry.bvh is not None\n"
         "c = dataclasses.replace(c, max_depth=3)\n"
         "out = render(s, c, sample_count=1, device='cpu')\n"
         "assert out['composite'].shape == (6, 8, 3) and (out['weights'] == 1.0).all()\n"
         "out = render(s, c, sample_count=1, device='cpu', mega=False)\n"
         "assert out['composite'].shape == (6, 8, 3) and (out['weights'] > 0).all()\n"
-        "s, c, _ = make_cornell_box(8, 6, 1, 'photonmapper')\n"
+        "s, c, _ = make_cornell_box(8, 6, 1, 'photonmapper', device='cpu')\n"
         "c = dataclasses.replace(c, max_depth=3,\n"
         "                        iprops=(('photonCount', 2000), ('photonRadius', 0.2)))\n"
         "out = render(s, c, sample_count=1, device='cpu')\n"
@@ -113,7 +113,7 @@ def _bilateral_ref(out_base, sigma_d=1.0, sigma_vr=0.6, inner_range=1):
     from optix_renderer_tpu_torch.render.variance import variance_from_image
     from optix_renderer_tpu_torch.scene.build import load_scene
 
-    scene, config, _ = load_scene(out_base.parent / "cbox.xml")
+    scene, config, _ = load_scene(out_base.parent / "cbox.xml", device="cpu")
     out = render(scene, dataclasses.replace(config, max_depth=3), device="cpu")
     rgb = torch.from_numpy(out["composite"])
     film = torch.cat([rgb, torch.from_numpy(out["weights"])[..., None]], dim=-1)

@@ -43,7 +43,7 @@ from optix_renderer_tpu_torch.core.math import Ray
 from optix_renderer_tpu_torch.ops import bsdf, camera, emitter, intersect
 from optix_renderer_tpu_torch.render import sampler as smp
 from optix_renderer_tpu_torch.render.film import in_footprints
-from optix_renderer_tpu_torch.render.render import render
+from optix_renderer_tpu_torch.render.render import _layers_out, render
 from optix_renderer_tpu_torch.scene import build, presets
 from optix_renderer_tpu_torch.scene.data import scene_from_numpy
 from optix_renderer_tpu_torch.utils.imageio import read_exr
@@ -101,7 +101,7 @@ def _zoo_xml(tmp_path) -> str:
 def zoo(tmp_path_factory):
     xml = _zoo_xml(tmp_path_factory.mktemp("zoo"))
     js, _, _ = jbuild.load_scene(xml)
-    ts, _, _ = build.load_scene(xml)
+    ts, _, _ = build.load_scene(xml, device="cpu")
     return js, ts
 
 
@@ -137,7 +137,7 @@ def test_sampler_and_sample_ray_match_jax():
     pos = rng.uniform((0, 0), (64, 48), (4096, 2)).astype(np.float32)
     ap = rng.uniform(size=(4096, 2)).astype(np.float32)
     jsc, _, _ = jpresets.make_cornell_box(64, 48, 1)
-    tsc, _, _ = presets.make_cornell_box(64, 48, 1)
+    tsc, _, _ = presets.make_cornell_box(64, 48, 1, device="cpu")
     for lens in (0.0, 0.05):
         jcam = jsc.camera._replace(lens_radius=jnp.float32(lens))
         tcam = dataclasses.replace(tsc.camera, lens_radius=torch.tensor(lens))
@@ -198,10 +198,10 @@ def test_emitter_functions_match_jax(zoo):
 def test_intersect_and_interaction_match_jax(kind):
     if kind == "cornell":  # 12 triangles (the brute-force sweep) and 2 spheres
         js, _, _ = jpresets.make_cornell_box(64, 48, 1)
-        ts, _, _ = presets.make_cornell_box(64, 48, 1)
+        ts, _, _ = presets.make_cornell_box(64, 48, 1, device="cpu")
     else:  # 300 triangles: the LBVH walk
         js, _, _ = jpresets.make_tessellated_cornell(64, 48, 1, nu=12, nv=7)
-        ts, _, _ = presets.make_tessellated_cornell(64, 48, 1, nu=12, nv=7)
+        ts, _, _ = presets.make_tessellated_cornell(64, 48, 1, nu=12, nv=7, device="cpu")
     rng = np.random.default_rng(3)
     n = 2048
     o = rng.uniform((-0.9, 0.1, -0.9), (0.9, 1.9, 0.9), (n, 3)).astype(np.float32)
@@ -242,11 +242,11 @@ def _films_match(a, b):
 def _configs(kind):
     if kind == "tessellated_box":
         js, jc, _ = jpresets.make_tessellated_cornell(24, 16, 1, nu=12, nv=7)
-        ts, tc, _ = presets.make_tessellated_cornell(24, 16, 1, nu=12, nv=7)
+        ts, tc, _ = presets.make_tessellated_cornell(24, 16, 1, nu=12, nv=7, device="cpu")
         rf = "box"
     else:
         js, jc, _ = jpresets.make_cornell_box(24, 16, 1)
-        ts, tc, _ = presets.make_cornell_box(24, 16, 1)
+        ts, tc, _ = presets.make_cornell_box(24, 16, 1, device="cpu")
         rf = "mitchell"
     return (js, dataclasses.replace(jc, max_depth=4, rfilter=rf),
             ts, dataclasses.replace(tc, max_depth=4, rfilter=rf))
@@ -285,7 +285,7 @@ def test_scan_path_reproduces_goldens(integrator):
     pixel over the bound lies inside two filter footprints, the median stays
     < 1e-4 and the means agree to 1e-3.
     """
-    scene, config, _ = presets.make_cornell_box(64, 48, 1, integrator)
+    scene, config, _ = presets.make_cornell_box(64, 48, 1, integrator, device="cpu")
     config = dataclasses.replace(config, max_depth=4, rfilter="gaussian")
     out = render(scene, config, sample_count=8, device="cpu", mega=False)["composite"]
     ref = read_exr(GOLDEN / f"cbox_{integrator}.exr")[..., :3]
@@ -313,10 +313,30 @@ def test_in_footprints_counts_filter_windows():
 def test_scan_path_matches_path_kernel():
     """Box filter: each sample lands on its own pixel with weight 1 in both
     films, and both draw the same pcg32 streams per (pixel, sample)."""
-    scene, config, _ = presets.make_cornell_box(24, 16, 1, "path_mis")
+    scene, config, _ = presets.make_cornell_box(24, 16, 1, "path_mis", device="cpu")
     config = dataclasses.replace(config, max_depth=3, rfilter="box")
     scan = render(scene, config, sample_count=2, device="cpu", mega=False)
     kern = render(scene, config, sample_count=2, device="cpu")
     _films_match(kern["composite"], scan["composite"])
     np.testing.assert_allclose(scan["albedo"], kern["albedo"], atol=2e-3)
     np.testing.assert_array_equal(scan["weights"], kern["weights"])
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_film_readout_equals_the_host_formula(seed):
+    """`render._layers_out` divides the film in torch where it lies; its
+    layers equal the numpy formula it replaced bit for bit, at weights of
+    0, at and around 1e-9, NaN, inf, -0 and denormals."""
+    rng = np.random.default_rng(seed)
+    a = rng.normal(0, 3, (3, 6, 9, 4)).astype(np.float32)
+    a[..., 3] = np.abs(a[..., 3]) * rng.choice([1e-12, 1e-3, 1.0, 1e3], a.shape[:3])
+    special = np.array([0.0, 1e-9, np.float32(1e-9) * np.float32(1.0000001), np.nan, np.inf,
+                        -0.0, 1e-40, 1e-30], np.float32)
+    a[:, 0, : special.size, 3] = special
+    w = a[..., 3:4]
+    want = np.where(w > 1e-9, a[..., :3] / np.maximum(w, 1e-9), 0.0)
+    out = _layers_out(torch.from_numpy(a.copy()))
+    got = np.stack([out["composite"], out["albedo"], out["normal"]])
+    assert got.dtype == want.dtype == np.float32
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    assert np.array_equal(out["weights"], a[0, ..., 3], equal_nan=True)

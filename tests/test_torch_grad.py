@@ -143,7 +143,7 @@ def homog(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("homog")
     th._write_cube_obj(tmp / "cube.obj")
     (tmp / "scene.xml").write_text(HOMOG_XML)
-    scene, config, _ = build.load_scene(tmp / "scene.xml")
+    scene, config, _ = build.load_scene(tmp / "scene.xml", device="cpu")
     js, jc, _ = jbuild.load_scene(str(tmp / "scene.xml"))
     return (scene, dataclasses.replace(config, max_depth=3), js,
             dataclasses.replace(jc, max_depth=3))
@@ -162,7 +162,7 @@ def _sigma_s_loss(scene, config):
 def test_fd_cornell_brute_force_path():
     """12-triangle Cornell box (the brute-force sweep): emitter radiance and
     texture albedo gradients match central differences."""
-    scene, config, _ = make_cornell_box(32, 24, 1, "path_mats")
+    scene, config, _ = make_cornell_box(32, 24, 1, "path_mats", device="cpu")
     config = dataclasses.replace(config, max_depth=3)
     assert scene.geometry.tri_v0.shape[0] < bvh_ops.MIN_TRIS_FOR_BVH
     _check_directions(scene, config, [("em_radiance", 2e-2), ("tex_value", 2e-2)], rtol=2e-2)
@@ -172,7 +172,7 @@ def test_fd_bvh_scene():
     """≥ 257 triangles: intersections walk the LBVH's child pairs on
     detached inputs, the winner is replayed live, and the gradients match
     central differences."""
-    scene, config, _ = make_tessellated_cornell(32, 24, 1, "path_mats", nu=24, nv=12)
+    scene, config, _ = make_tessellated_cornell(32, 24, 1, "path_mats", nu=24, nv=12, device="cpu")
     assert scene.geometry.tri_v0.shape[0] >= bvh_ops.MIN_TRIS_FOR_BVH
     assert scene.geometry.bvh is not None
     config = dataclasses.replace(config, max_depth=3)
@@ -430,7 +430,7 @@ def test_scene_to_and_detach_keep_and_cut_the_graph():
     gradient through the moved scene), `detach()` cuts every table, the
     kernel wrappers refuse tensors that require grad, and the parameter
     dicts round-trip through numpy."""
-    scene, config, _ = make_cornell_box(8, 6, 1, "path_mis")
+    scene, config, _ = make_cornell_box(8, 6, 1, "path_mis", device="cpu")
     config = dataclasses.replace(config, max_depth=2)
     em = scene.emitters.radiance.clone().requires_grad_(True)
     moved = dataclasses.replace(scene, emitters=dataclasses.replace(scene.emitters, radiance=em))
@@ -455,7 +455,7 @@ def test_render_round_is_accumulate_into_zeros(rfilter):
     `render_round_accumulate` into a zero film, and the splat's gradient
     is its adjoint: the splat is linear in `layers`, so
     <splat(layers), G> = <layers, ∂/∂layers <splat(layers), G>>."""
-    scene, config, _ = make_cornell_box(12, 9, 1, "path_mis")
+    scene, config, _ = make_cornell_box(12, 9, 1, "path_mis", device="cpu")
     config = dataclasses.replace(config, max_depth=2, rfilter=rfilter)
     pix = torch.arange(config.width * config.height)
     live = apply_params(scene, _leaves(trainable_params(scene)))

@@ -81,7 +81,7 @@ def test_scene_with_palette_texture_builds_in_both(tmp_path):
     (tmp_path / "s.xml").write_text(
         f'<scene><shape type="sphere"><bsdf type="diffuse">{png}</bsdf></shape></scene>')
     js, _, _ = jbuild.load_scene(str(tmp_path / "s.xml"))
-    ts, _, _ = build.load_scene(tmp_path / "s.xml")
+    ts, _, _ = build.load_scene(tmp_path / "s.xml", device="cpu")
     carried = scene_from_numpy(jax.tree.map(np.asarray, js))
     assert ts.textures.image_data.shape[0] == 1
     for field in ("image_data", "image_hw", "image_id", "type"):

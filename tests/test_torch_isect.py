@@ -41,7 +41,7 @@ def _soup(rng, n):
 
 def _mesh_tris():
     """The tessellated Cornell box at nu=12, nv=7: 300 triangles."""
-    s, _, _ = presets.make_tessellated_cornell(24, 16, 1, nu=12, nv=7)
+    s, _, _ = presets.make_tessellated_cornell(24, 16, 1, nu=12, nv=7, device="cpu")
     g = s.geometry
     v0 = g.tri_v0.numpy()
     return v0, v0 + g.tri_e1.numpy(), v0 + g.tri_e2.numpy()

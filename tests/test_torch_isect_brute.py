@@ -44,9 +44,9 @@ def _camera_case(rng, t_cnt, n=2048):
     """The scene's triangle table and n camera rays through random film
     positions of a 32x24 film."""
     if t_cnt == 12:
-        scene, _, _ = presets.make_cornell_box(32, 24, 1)
+        scene, _, _ = presets.make_cornell_box(32, 24, 1, device="cpu")
     else:
-        scene, _, _ = presets.make_tessellated_cornell(32, 24, 1, nu=10, nv=7)
+        scene, _, _ = presets.make_tessellated_cornell(32, 24, 1, nu=10, nv=7, device="cpu")
     pos = _f32(rng.uniform((0, 0), (32, 24), (n, 2)))
     ray, _ = sample_ray(scene.camera, 32, 24, torch.from_numpy(pos),
                         torch.from_numpy(_f32(rng.uniform(size=(n, 2)))))
@@ -115,7 +115,7 @@ def test_scan_path_passes_the_geometry_table(monkeypatch):
     every call, detached (a view of the same storage, so no copy): the
     kernel pads its rows in shared memory, so there is no per-call host
     table to build."""
-    scene, _, _ = presets.make_cornell_box(8, 6, 1)
+    scene, _, _ = presets.make_cornell_box(8, 6, 1, device="cpu")
     geom = scene.geometry
     seen = []
     real = isect.isect_brute

@@ -35,7 +35,7 @@ T = torch.from_numpy
 
 def _cornell_tris(nu, nv):
     """The tessellated Cornell box: 12 + 4 nu (nv - 1) triangles."""
-    s, _, _ = presets.make_tessellated_cornell(24, 16, 1, nu=nu, nv=nv)
+    s, _, _ = presets.make_tessellated_cornell(24, 16, 1, nu=nu, nv=nv, device="cpu")
     g = s.geometry
     v0 = g.tri_v0.numpy()
     return v0, v0 + g.tri_e1.numpy(), v0 + g.tri_e2.numpy()
@@ -268,7 +268,7 @@ def test_isect_bvh_on_cpu_runs_the_plain_version(mesh, any_hit):
 def test_scene_builders_carry_the_pair_table():
     from optix_renderer_tpu.scene.presets import make_tessellated_cornell as jax_tess
 
-    scene, _, _ = presets.make_tessellated_cornell(24, 16, 1, nu=12, nv=7)
+    scene, _, _ = presets.make_tessellated_cornell(24, 16, 1, nu=12, nv=7, device="cpu")
     b = scene.geometry.bvh
     np.testing.assert_array_equal(_bits(b.pairs.numpy()),
                                   _bits(bvh.pack_child_pairs(b.packed.numpy())))

@@ -41,7 +41,7 @@ def _tess300(integrator, w=24, h=16):
     """The tessellated Cornell box at nu=12, nv=7: 300 triangles, which the
     JAX kernel pads to 512 and sweeps in two 256-triangle chunks."""
     js, jc, _ = jpresets.make_tessellated_cornell(w, h, 1, integrator, nu=12, nv=7)
-    ts, tc, _ = presets.make_tessellated_cornell(w, h, 1, integrator, nu=12, nv=7)
+    ts, tc, _ = presets.make_tessellated_cornell(w, h, 1, integrator, nu=12, nv=7, device="cpu")
     assert tc.n_tris == 300
     fix = dict(max_depth=3, rfilter="box")
     return js, dataclasses.replace(jc, **fix), ts, dataclasses.replace(tc, **fix)
@@ -161,7 +161,7 @@ def test_strip_room_with_glass_sphere_and_spot_matches_jax(tmp_path):
              '<float name="radius" value="0.3"/><bsdf type="dielectric"/></shape>')
     xml = room_xml(tmp_path, LIGHTS["spot"], extra=_strip_obj(tmp_path) + glass)
     js, jc, _ = jbuild.load_scene(xml)
-    ts, tc, _ = build.load_scene(xml)
+    ts, tc, _ = build.load_scene(xml, device="cpu")
     jc = dataclasses.replace(jc, max_depth=3, rfilter="box")
     tc = dataclasses.replace(tc, max_depth=3, rfilter="box")
     tt, tm = pathk.build_pathk_tables(ts, tc)
@@ -185,7 +185,7 @@ def _emissive8_tables(tmp_path):
     (tmp_path / "lamp.obj").write_text("\n".join(quads + faces) + "\n")
     lamp = ('<shape type="obj"><string name="filename" value="lamp.obj"/>'
             '<emitter type="area"><color name="radiance" value="9 8 7"/></emitter></shape>')
-    scene, _, _ = build.load_scene(room_xml(tmp_path, LIGHTS["point"], extra=lamp))
+    scene, _, _ = build.load_scene(room_xml(tmp_path, LIGHTS["point"], extra=lamp), device="cpu")
     mt = mega.build_mega_tables(scene)
     assert mt["te_cnt"] == 8 and mt["et"].shape[0] == 8
     et = mt["et"].copy()
@@ -242,7 +242,8 @@ def test_medium_nee_sample_matches_jax_and_takes_the_fallback_row(tmp_path):
 def test_pathk_eligible_up_to_8192_triangles(nu, eligible):
     """nu=40, nv=51 is 12 + 4·40·50 = 8,012 triangles, the top of the medium
     branch; nu=41 is 8,212, which goes to the scan path."""
-    scene, config, _ = presets.make_tessellated_cornell(8, 6, 1, "path_mis", nu=nu, nv=51)
+    scene, config, _ = presets.make_tessellated_cornell(8, 6, 1, "path_mis", nu=nu, nv=51,
+                                                        device="cpu")
     assert config.n_tris == 12 + 4 * nu * 50
     assert pathk.pathk_eligible(scene, config) is eligible
     if eligible:

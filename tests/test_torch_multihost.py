@@ -81,7 +81,8 @@ def mh_result(tmp_path_factory):
 
 
 def _cornell():
-    scene, cfg, _ = make_cornell_box(width=16, height=12, spp=4, integrator="path_mis")
+    scene, cfg, _ = make_cornell_box(width=16, height=12, spp=4, integrator="path_mis",
+                                     device="cpu")
     return scene, dataclasses.replace(cfg, max_depth=3)
 
 

@@ -40,7 +40,8 @@ def _assert_films_match(a, b):
 
 def _cornell(integrator, w=24, h=16, rfilter="box", depth=3):
     js, jc, _ = jpresets.make_cornell_box(width=w, height=h, spp=1, integrator=integrator)
-    ts, tc, _ = presets.make_cornell_box(width=w, height=h, spp=1, integrator=integrator)
+    ts, tc, _ = presets.make_cornell_box(width=w, height=h, spp=1, integrator=integrator,
+                                         device="cpu")
     return (js, dataclasses.replace(jc, max_depth=depth, rfilter=rfilter),
             ts, dataclasses.replace(tc, max_depth=depth, rfilter=rfilter))
 
@@ -108,7 +109,7 @@ def test_cornell_film_matches_jax_kernel(integrator):
 def test_spot_room_film_matches_jax_kernel(tmp_path):
     xml = room_xml(tmp_path, LIGHTS["spot"])
     js, jc, _ = jbuild.load_scene(xml)
-    ts, tc, _ = build.load_scene(xml)
+    ts, tc, _ = build.load_scene(xml, device="cpu")
     jc = dataclasses.replace(jc, max_depth=3, rfilter="box")
     tc = dataclasses.replace(tc, max_depth=3, rfilter="box")
     ref = render_mega(js, jc, sample_count=4, interpret=True)
@@ -125,7 +126,7 @@ def test_golden_plain_version(integrator, block):
     are splatted films and the kernel's is filter-importance sampled;
     path_mats at 8 spp misses the per-pixel bound for the JAX path kernel
     as well (next test), so it is checked on 4×4-pixel block means."""
-    ts, tc, _ = presets.make_cornell_box(64, 48, 1, integrator)
+    ts, tc, _ = presets.make_cornell_box(64, 48, 1, integrator, device="cpu")
     tc = dataclasses.replace(tc, max_depth=4, rfilter="gaussian")
     b = render(ts, tc, sample_count=8, device="cpu")["composite"]
     a = read_exr(GOLDEN / f"cbox_{integrator}.exr")[..., :3]
@@ -138,7 +139,7 @@ def test_golden_per_pixel_statistic_of_jax_kernel():
     """Why path_mats is held to the golden on block means: at the golden
     config the JAX path kernel's own film misses the per-pixel bound
     (0.6655 against 0.35), and the plain version gives the same film."""
-    ts, tc, _ = presets.make_cornell_box(64, 48, 1, "path_mats")
+    ts, tc, _ = presets.make_cornell_box(64, 48, 1, "path_mats", device="cpu")
     js, jc, _ = jpresets.make_cornell_box(width=64, height=48, spp=1, integrator="path_mats")
     tc = dataclasses.replace(tc, max_depth=4, rfilter="gaussian")
     jc = dataclasses.replace(jc, max_depth=4, rfilter="gaussian")
@@ -152,7 +153,7 @@ def test_golden_per_pixel_statistic_of_jax_kernel():
 
 
 def test_checkpoint_resume_equals_unbroken_render(tmp_path):
-    ts, tc, _ = presets.make_cornell_box(24, 16, 1, "path_mis")
+    ts, tc, _ = presets.make_cornell_box(24, 16, 1, "path_mis", device="cpu")
     tc = dataclasses.replace(tc, max_depth=3, rfilter="gaussian")
     full = render(ts, tc, sample_count=4, device="cpu")
     ckpt = str(tmp_path / "film")
@@ -168,7 +169,7 @@ def test_preview_and_checkpoint_cadence(tmp_path):
     """Previews every 3 and checkpoints every 2 samples: with `%` cadence
     previews would only fire on multiples of the group size; here every
     period of at least `every` samples yields one."""
-    ts, tc, _ = presets.make_cornell_box(8, 6, 1, "path_mats")
+    ts, tc, _ = presets.make_cornell_box(8, 6, 1, "path_mats", device="cpu")
     tc = dataclasses.replace(tc, max_depth=2)
     seen = []
     render(ts, tc, sample_count=7, device="cpu", preview_every=3,

@@ -270,7 +270,7 @@ def test_photonmapper_film_means_match_jax():
     js, jc, _ = jmake_cornell_box(width=48, height=48, spp=8)
     cfg = _pmap_config(jc, 48, 48, 20000)
     ref = float(np.asarray(jrender(js, cfg, sample_count=4)["composite"]).mean())
-    ts, tc, _ = presets.make_cornell_box(width=48, height=48, spp=8)
+    ts, tc, _ = presets.make_cornell_box(width=48, height=48, spp=8, device="cpu")
     got = render(ts, _pmap_config(tc, 48, 48, 20000), sample_count=4, device="cpu")
     assert got["composite"].shape == (48, 48, 3)
     assert abs(float(got["composite"].mean()) - ref) <= 0.05 * ref, (got["composite"].mean(), ref)

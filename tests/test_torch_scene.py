@@ -76,7 +76,7 @@ def _compare_tables(jscene, jconfig, tscene, tconfig):
 
 def test_cornell_tables_match_jax():
     js, jc, _ = jpresets.make_cornell_box(width=40, height=30, spp=1)
-    ts, tc, _ = presets.make_cornell_box(width=40, height=30, spp=1)
+    ts, tc, _ = presets.make_cornell_box(width=40, height=30, spp=1, device="cpu")
     assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
     _compare_tables(js, jc, ts, tc)
 
@@ -85,7 +85,7 @@ def test_cornell_tables_match_jax():
 def test_room_tables_match_jax(tmp_path, kind):
     xml = room_xml(tmp_path, LIGHTS[kind])
     js, jc, _ = jbuild.load_scene(xml)
-    ts, tc, _ = build.load_scene(xml)
+    ts, tc, _ = build.load_scene(xml, device="cpu")
     _compare_tables(js, jc, ts, tc)
 
 
@@ -96,7 +96,7 @@ _ATTR_OF_TRI = {**{c: 30 + c for c in range(9)}, **{9 + c: c for c in range(12)}
 
 def test_medium_tables_match_jax_mxu_branch():
     js, jc, _ = jpresets.make_tessellated_cornell(24, 16, 1, nu=12, nv=7)
-    ts, tc, _ = presets.make_tessellated_cornell(24, 16, 1, nu=12, nv=7)
+    ts, tc, _ = presets.make_tessellated_cornell(24, 16, 1, nu=12, nv=7, device="cpu")
     jt, jm = jpathk.build_pathk_tables(js, jc)
     tt, tm = pathk.build_pathk_tables(ts, tc)
     assert jm["use_mxu"] and tm["t_cnt"] == jm["t_cnt"] == 300 > pathk.VPU_MAX_TRIS
@@ -114,7 +114,7 @@ def test_medium_tables_match_jax_mxu_branch():
 
 def test_sample_to_camera_matrix_matches_jax():
     js, _, _ = jpresets.make_cornell_box(width=40, height=30, spp=1)
-    ts, _, _ = presets.make_cornell_box(width=40, height=30, spp=1)
+    ts, _, _ = presets.make_cornell_box(width=40, height=30, spp=1, device="cpu")
     for w, h in ((800, 600), (64, 48), (17, 31)):
         ref = np.asarray(j_s2c(js.camera, w, h))
         np.testing.assert_allclose(sample_to_camera_matrix(ts.camera, w, h).numpy(), ref,
@@ -133,28 +133,30 @@ def test_unsupported_scenes_raise(tmp_path):
 
     test_root = tmp_path / "t.xml"
     test_root.write_text('<test type="ttest"><integer name="sampleCount" value="4"/></test>')
-    _, config, _ = build.load_scene(test_root)
+    _, config, _ = build.load_scene(test_root, device="cpu")
     _, jconfig, _ = jbuild.load_scene(test_root)
     assert (config.width, config.height, config.integrator, config.sample_count) == (
         jconfig.width, jconfig.height, jconfig.integrator, jconfig.sample_count)
     bsdf_root = tmp_path / "b.xml"
     bsdf_root.write_text('<bsdf type="diffuse"/>')
     with pytest.raises(SceneBuildError, match="root must be <scene> or <test>"):
-        build.load_scene(bsdf_root)
+        build.load_scene(bsdf_root, device="cpu")
     den = ('<denoiser type="simple"><float name="sigma_d" value="6.0"/>'
            '<float name="sigma_vr" value="1.5"/><integer name="range" value="7"/></denoiser>')
-    _, config, _ = build.load_scene(room_xml(tmp_path, LIGHTS["point"], extra=den))
+    _, config, _ = build.load_scene(room_xml(tmp_path, LIGHTS["point"], extra=den), device="cpu")
     _, jconfig, _ = jbuild.load_scene(room_xml(tmp_path, LIGHTS["point"], extra=den))
     assert config.denoiser == "simple" and config.dprops == jconfig.dprops
     assert (config.dprop("sigma_d"), config.dprop("sigma_vr"), config.dprop("range")) == (
         6.0, 1.5, 7)
-    _, config, _ = build.load_scene(room_xml(tmp_path, LIGHTS["point"], extra="<denoiser/>"))
+    _, config, _ = build.load_scene(room_xml(tmp_path, LIGHTS["point"], extra="<denoiser/>"),
+                                    device="cpu")
     assert config.denoiser == "simple" and config.dprops == ()
     medium = ('<shape type="sphere"><point name="center" value="0 1 0"/>'
               '<float name="radius" value="0.3"/>'
               '<medium type="homog" name="interior"><color name="sigma_s" value="1 1 1"/>'
               '</medium></shape>')
-    scene, config, _ = build.load_scene(room_xml(tmp_path, LIGHTS["point"], extra=medium))
+    scene, config, _ = build.load_scene(room_xml(tmp_path, LIGHTS["point"], extra=medium),
+                                        device="cpu")
     assert scene.shapes.interior_medium.tolist() == [-1, -1, 0] and scene.shapes.bsdf[2] == -1
     assert not pathk.pathk_eligible(scene, config)
     out = render(scene, dataclasses.replace(config, width=8, height=6, max_depth=3,
@@ -164,7 +166,8 @@ def test_unsupported_scenes_raise(tmp_path):
     sphere_light = ('<shape type="sphere"><point name="center" value="0 1 0"/>'
                     '<float name="radius" value="0.3"/>'
                     '<emitter type="area"><color name="radiance" value="1 1 1"/></emitter></shape>')
-    scene, config, _ = build.load_scene(room_xml(tmp_path, LIGHTS["point"], extra=sphere_light))
+    scene, config, _ = build.load_scene(room_xml(tmp_path, LIGHTS["point"], extra=sphere_light),
+                                        device="cpu")
     assert scene.emitters.geom_kind.tolist() == [2, 0] and scene.emitters.sphere_id[0] == 0
     assert not pathk.pathk_eligible(scene, config)
     out = render(scene, dataclasses.replace(config, width=8, height=6, max_depth=3),
@@ -190,7 +193,8 @@ def test_render_refuses_what_the_kernel_does_not_cover(tmp_path):
     lines += [f"f {2 * k + 1} {2 * k + 2} {2 * k + 4} {2 * k + 3}" for k in range(33)]
     (tmp_path / "strip.obj").write_text("\n".join(lines) + "\n")
     extra = '<shape type="obj"><string name="filename" value="strip.obj"/></shape>'
-    scene, config, _ = build.load_scene(room_xml(tmp_path, LIGHTS["point"], extra=extra))
+    scene, config, _ = build.load_scene(room_xml(tmp_path, LIGHTS["point"], extra=extra),
+                                        device="cpu")
     assert config.n_tris == 70
     assert mega.mega_eligible(scene, config) and pathk.pathk_eligible(scene, config)
     small = dataclasses.replace(config, width=8, height=6, max_depth=3)
@@ -198,7 +202,7 @@ def test_render_refuses_what_the_kernel_does_not_cover(tmp_path):
     out = render(scene, small, sample_count=1, device="cpu")
     # the path kernel's film: `weights` counts samples (the splat film sums filter weights)
     assert out["weights"].shape == (6, 8) and (out["weights"] == 1.0).all()
-    scene, config, _ = build.load_scene(room_xml(tmp_path, LIGHTS["point"]))
+    scene, config, _ = build.load_scene(room_xml(tmp_path, LIGHTS["point"]), device="cpu")
     assert pathk.pathk_eligible(scene, config)
     mitchell = dataclasses.replace(config, width=8, height=6, max_depth=3, rfilter="mitchell")
     assert not pathk.pathk_eligible(scene, mitchell)
@@ -272,7 +276,7 @@ def test_dispatch_matches_jax(tmp_path, kind):
     scene lit by nothing still takes the path kernel in both."""
     xml, cfg = _dispatch_scene(tmp_path, kind)
     js, jc, _ = jbuild.load_scene(xml)
-    ts, tc, _ = build.load_scene(xml)
+    ts, tc, _ = build.load_scene(xml, device="cpu")
     jc, tc = dataclasses.replace(jc, **cfg), dataclasses.replace(tc, **cfg)
     want = jpathk.pathk_eligible(js, jc)
     assert want == (kind in ("no_emitters", "cornell"))

@@ -76,7 +76,7 @@ REFUSED = [("emitter_radiance", 999, [1, 1, 1]), ("emitter_radiance", 0, [1.0, 2
 
 
 def test_edits_match_jax():
-    scene, config, _ = make_cornell_box(width=8, height=6, spp=1)
+    scene, config, _ = make_cornell_box(width=8, height=6, spp=1, device="cpu")
     jscene, jconfig, _ = jmake_cornell_box(width=8, height=6, spp=1)
     live = LiveRenderer(scene, config, spp=1, device="cpu")
     jlive = JLiveRenderer(jscene, jconfig, spp=1)
@@ -98,7 +98,7 @@ def test_edits_match_jax():
 
 
 def test_live_view_edit_loop():
-    scene, config, _ = make_cornell_box(width=16, height=12, spp=1)
+    scene, config, _ = make_cornell_box(width=16, height=12, spp=1, device="cpu")
     config = dataclasses.replace(config, max_depth=2)
     live = LiveRenderer(scene, config, spp=100_000, device="cpu")
     port = _free_port()
@@ -163,7 +163,7 @@ def test_render_serve_cli(tmp_path, capsys):
 
 
 def test_concurrent_edits_all_apply():
-    scene, config, _ = make_cornell_box(width=8, height=6, spp=1)
+    scene, config, _ = make_cornell_box(width=8, height=6, spp=1, device="cpu")
     config = dataclasses.replace(config, max_depth=1)
     live = LiveRenderer(scene, config, spp=100_000, device="cpu")
     rows = scene.bsdfs.kd.shape[0]

@@ -48,7 +48,7 @@ def _mesh(n: int):
 
 
 def _cornell(w=24, h=16, spp=2, depth=3, rfilter="gaussian"):
-    s, c, _ = presets.make_cornell_box(w, h, spp, "path_mis")
+    s, c, _ = presets.make_cornell_box(w, h, spp, "path_mis", device="cpu")
     return s, dataclasses.replace(c, max_depth=depth, rfilter=rfilter)
 
 
@@ -84,7 +84,8 @@ def test_split_ranges_equal_one_call(branch):
     if branch == "small":
         scene, cfg = _cornell()
     else:
-        scene, cfg, _ = presets.make_tessellated_cornell(24, 16, 2, "path_mis", nu=12, nv=7)
+        scene, cfg, _ = presets.make_tessellated_cornell(24, 16, 2, "path_mis", nu=12, nv=7,
+                                                         device="cpu")
         cfg = dataclasses.replace(cfg, max_depth=3)
     tables, meta = pathk.build_pathk_tables(scene, cfg)
     assert (meta["t_cnt"] > pathk.VPU_MAX_TRIS) == (branch == "medium")

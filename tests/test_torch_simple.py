@@ -115,7 +115,7 @@ def _films_match(a, b):
 @pytest.mark.parametrize("name", ["direct_mis", "direct", "av"])
 def test_film_matches_jax(name):
     js, jc, _ = jpresets.make_cornell_box(24, 16, 1, name)
-    ts, tc, _ = presets.make_cornell_box(24, 16, 1, name)
+    ts, tc, _ = presets.make_cornell_box(24, 16, 1, name, device="cpu")
     jc, tc = dataclasses.replace(jc, rfilter="box"), dataclasses.replace(tc, rfilter="box")
     ref = jrender(js, jc, sample_count=4, mega=False, wavefront=False)
     got = render(ts, tc, sample_count=4, device="cpu", mega=False)
@@ -130,7 +130,7 @@ def test_scan_path_reproduces_goldens(name):
     |a−b|/(|ref|+1e-2) < 1e-3, or, where a sample takes another branch than
     in the JAX film, every pixel over the bound inside two filter footprints,
     the median < 1e-4 and the means within 1e-3 (tests/test_torch_general.py)."""
-    scene, config, _ = presets.make_cornell_box(64, 48, 1, name)
+    scene, config, _ = presets.make_cornell_box(64, 48, 1, name, device="cpu")
     config = dataclasses.replace(config, max_depth=4, rfilter="gaussian")
     out = render(scene, config, sample_count=8, device="cpu", mega=False)["composite"]
     ref = read_exr(GOLDEN / f"cbox_{name}.exr")[..., :3]

@@ -29,7 +29,7 @@ from optix_renderer_tpu_torch.tools.time_pathk import (
 
 
 def _cornell(integrator, seed, depth=8, rfilter="gaussian"):
-    scene, cfg, _ = presets.make_cornell_box(24, 16, 1, integrator)
+    scene, cfg, _ = presets.make_cornell_box(24, 16, 1, integrator, device="cpu")
     cfg = dataclasses.replace(cfg, max_depth=depth, rfilter=rfilter, seed=seed)
     tables, meta = pathk.build_pathk_tables(scene, cfg)
     return tables, meta, cfg

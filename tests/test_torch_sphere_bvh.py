@@ -186,7 +186,7 @@ def test_replay_gradient_matches_jax_and_finite_differences():
 def sphere_scene(tmp_path_factory):
     xml = sphere_cornell_xml(tmp_path_factory.mktemp("sph"), 24, 16, 2, "path_mis")
     js, jc, _ = jbuild.load_scene(xml)
-    ts, tc, _ = build.load_scene(xml)
+    ts, tc, _ = build.load_scene(xml, device="cpu")
     return (js, dataclasses.replace(jc, max_depth=3), ts, dataclasses.replace(tc, max_depth=3))
 
 
@@ -202,7 +202,7 @@ def test_builder_and_scene_from_numpy_carry_the_spheres_lbvh(sphere_scene):
     np.testing.assert_array_equal(carried.sph_bvh.leaf.numpy(), np.asarray(js.geometry.sph_bvh.leaf))
     # 64 spheres: no tree, on either side
     small = build.load_scene(sphere_cornell_xml(
-        __import__("tempfile").mkdtemp(), 8, 8, 1, nx=8, nz=8))[0]
+        __import__("tempfile").mkdtemp(), 8, 8, 1, nx=8, nz=8), device="cpu")[0]
     assert small.geometry.sph_center.shape[0] == 64 and small.geometry.sph_bvh is None
 
 

@@ -82,7 +82,7 @@ def config_t(tmp_path_factory):
     """Config T at 24×16 built by the JAX builder, and by the port's."""
     xml = presets.textured_cornell_xml(tmp_path_factory.mktemp("config_t"), 24, 16, 4)
     js, jc, _ = jbuild.load_scene(str(xml))
-    ts, tc, _ = build.load_scene(xml)
+    ts, tc, _ = build.load_scene(xml, device="cpu")
     return js, jc, ts, tc
 
 
@@ -383,7 +383,7 @@ def test_textured_bsdfs_match_jax(tmp_path):
                      for k, m in enumerate(mats))
     (tmp_path / "b.xml").write_text(f"<scene>{shapes}</scene>")
     js, _, _ = jbuild.load_scene(str(tmp_path / "b.xml"))
-    ts, _, _ = build.load_scene(tmp_path / "b.xml")
+    ts, _, _ = build.load_scene(tmp_path / "b.xml", device="cpu")
     assert set(ts.bsdfs.type.tolist()) == {0, 1, 2, 3, 4} and ts.textures.kinds == (1, 2)
     n = 8192
 

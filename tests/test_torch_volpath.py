@@ -104,7 +104,7 @@ def _films_match(a, b):
 @pytest.mark.parametrize("kind,integ", [("H", "path_vol_mis"), ("V", "path_vol_mats")])
 def test_film_matches_jax(configs, kind, integ):
     xml, js, jc, _ = configs[kind]
-    ts, tc, _ = build.load_scene(xml)
+    ts, tc, _ = build.load_scene(xml, device="cpu")
     jc = dataclasses.replace(jc, integrator=integ, max_depth=3, rfilter="box")
     tc = dataclasses.replace(tc, integrator=integ, max_depth=3, rfilter="box")
     ref = jrender(js, jc, sample_count=1, mega=False, wavefront=False)
@@ -119,7 +119,7 @@ def test_absorbing_sphere_reproduces_golden():
     6): max |a−b|/(|ref|+1e-2) < 1e-3, or every pixel over it inside two
     filter footprints, the median < 1e-4 and the means within 1e-3."""
     scene, config, _ = presets.make_absorbing_sphere(width=48, height=48, spp=1,
-                                                     integrator="path_vol_mis")
+                                                     integrator="path_vol_mis", device="cpu")
     config = dataclasses.replace(config, max_depth=6, rfilter="gaussian")
     out = render(scene, config, sample_count=8, device="cpu")["composite"]
     ref = read_exr(GOLDEN / "absorb_vol_mis.exr")[..., :3]
@@ -138,7 +138,8 @@ def test_beer_lambert(integ):
     (3σ of 256 samples ≈ 0.09; their chords are 2 % shorter), and the
     background exactly 1."""
     sigma_a, radius = 0.5, 1.0
-    scene, config, _ = presets.make_absorbing_sphere(sigma_a, radius, 16, 16, 16, integ)
+    scene, config, _ = presets.make_absorbing_sphere(sigma_a, radius, 16, 16, 16, integ,
+                                                     device="cpu")
     config = dataclasses.replace(config, max_depth=4)
     want = np.exp(-sigma_a * 2 * radius)
     n = 8192
@@ -172,7 +173,7 @@ def _cube_scene(tmp_path, medium: str, density=None) -> tuple:
         f"{vol}</medium></shape>"
         '<emitter type="point"><point name="position" value="0,-2,2"/>'
         '<color name="power" value="400,400,400"/></emitter></scene>')
-    scene, config, _ = build.load_scene(xml)
+    scene, config, _ = build.load_scene(xml, device="cpu")
     return scene, dataclasses.replace(config, max_depth=6)
 
 
@@ -199,7 +200,7 @@ def test_emissive_ball_direct_view_analytic(tmp_path):
         '<emitter type="volumelight"><color name="radiance" value="3 3 3"/></emitter>'
         '</medium></shape><shape type="obj"><string name="filename" value="plane.obj"/>'
         '<bsdf type="diffuse"><color name="albedo" value="1 1 1"/></bsdf></shape></scene>')
-    scene, config, _ = build.load_scene(xml)
+    scene, config, _ = build.load_scene(xml, device="cpu")
     n = 4096
     ray = Ray(o=torch.tensor([0.0, -4.0, 0.75]).expand(n, 3),
               d=torch.tensor([0.0, 1.0, 0.0]).expand(n, 3),
@@ -228,7 +229,7 @@ def test_temperature_emission_analytic(tmp_path):
         f'<float name="temperatureScale" value="{t_scale}"/>'
         '<volume type="volume"><string name="filename" value="vol.npz"/></volume>'
         "</medium></shape></scene>")
-    scene, config, _ = build.load_scene(xml)
+    scene, config, _ = build.load_scene(xml, device="cpu")
     n = 4096
     ray = Ray(o=torch.tensor([0.0, -3.0, 0.0]).expand(n, 3),
               d=torch.tensor([0.0, 1.0, 0.0]).expand(n, 3),
@@ -264,7 +265,7 @@ def test_builder_matches_jax(tmp_path, kind):
     else:
         xml = str(presets.medium_cornell_xml(tmp_path, 24, 16, 1, "path_vol_mis", kind, res=16))
     js, jc, _ = jbuild.load_scene(xml)
-    ts, tc, _ = build.load_scene(xml)
+    ts, tc, _ = build.load_scene(xml, device="cpu")
     _assert_same_tables(ts, scene_from_numpy(jax.tree.map(np.asarray, js)))
     assert (tc.n_emitters, tc.n_tris, tc.shadow_segments) == (jc.n_emitters, jc.n_tris,
                                                               jc.shadow_segments)

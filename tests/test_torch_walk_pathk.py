@@ -176,12 +176,13 @@ def _strip_room(tmp_path, w=16, h=12):
              '<float name="radius" value="0.3"/><bsdf type="dielectric"/></shape>')
     xml = room_xml(tmp_path, LIGHTS["spot"], width=w, height=h,
                    extra=_strip_obj(tmp_path) + glass)
-    scene, config, _ = build.load_scene(xml)
+    scene, config, _ = build.load_scene(xml, device="cpu")
     return scene, dataclasses.replace(config, max_depth=3, rfilter="box")
 
 
 def _tess300(integrator, w=24, h=16):
-    scene, config, _ = presets.make_tessellated_cornell(w, h, 1, integrator, nu=12, nv=7)
+    scene, config, _ = presets.make_tessellated_cornell(w, h, 1, integrator, nu=12, nv=7,
+                                                        device="cpu")
     return scene, dataclasses.replace(config, max_depth=3, rfilter="box")
 
 
@@ -209,7 +210,7 @@ def test_medium_scenes_get_walk_tables(where, tmp_path):
     elif where == "strip_room":
         scene, config = _strip_room(tmp_path)
     else:
-        scene, config, _ = presets.make_cornell_box(24, 16, 1, "path_mis")
+        scene, config, _ = presets.make_cornell_box(24, 16, 1, "path_mis", device="cpu")
     tables, meta = pathk.build_pathk_tables(scene, config)
     packed, leaf = tables["packed"], tables["leaf"]
     assert meta["n_nodes"] == packed.shape[0] and packed.shape[1] == 8 and leaf.shape[1] == 40

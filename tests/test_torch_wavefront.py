@@ -37,7 +37,7 @@ LAYERS = ("composite", "albedo", "normal", "weights")
 
 
 def _cornell(integrator, rfilter=None, depth=6):
-    scene, config, _ = make_cornell_box(24, 16, 2, integrator)
+    scene, config, _ = make_cornell_box(24, 16, 2, integrator, device="cpu")
     config = dataclasses.replace(config, max_depth=depth, rfilter=rfilter or config.rfilter)
     return scene, config
 

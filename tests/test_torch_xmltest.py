@@ -104,7 +104,7 @@ def test_scene_ttest_matches_jax(tmp_path, monkeypatch):
     scenes = load_from_string(xml.read_text()).children_of("scene")
     for sn, n_tris in zip(scenes, (168, 264)):
         sn.origin = str(tmp_path)
-        _, config, _ = build.build_scene(sn)
+        _, config, _ = build.build_scene(sn, device="cpu")
         assert config.n_tris == n_tris
     rep = run_xml_test(xml, verbose=False, sample_scale=0.01, device="cpu")
 
@@ -168,7 +168,7 @@ def test_bad_tests_raise(tmp_path):
     with pytest.raises(ValueError, match="mismatched"):
         run_xml_test(mism, verbose=False, device="cpu")
     # a <test> root builds in both packages as a scene of defaults
-    scene, config, _ = build.load_scene(mism)
+    scene, config, _ = build.load_scene(mism, device="cpu")
     jscene, jconfig, _ = jbuild.load_scene(mism)
     assert (config.width, config.height) == (jconfig.width, jconfig.height)
     carried = scene_from_numpy(jax.tree.map(np.asarray, jscene))
