@@ -290,6 +290,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from optix_renderer_tpu_torch.utils import tracing
+
 # the published H100 SXM peaks, the FP32 operations of one Moller-Trumbore
 # test and of a ray's direction reciprocal, and the bytes an intersection
 # call must move per ray (o, d, mint, cutoff in; id, t, u, v out)
@@ -327,9 +329,19 @@ OPS_LANE = 40
 # bytes one lane moves once: ro, rd, t_max, med, four state words in;
 # t_event / T, K, two state words out
 LANE_BYTES = 12 + 12 + 4 + 4 + 32 + 4 + 4 + 16
+# the kernels whose launch counters (`launch.<kernel>`, utils/tracing.py)
+# the render phases read
+ISECT_KERNELS = ("isect_bvh_closest", "isect_bvh_any", "isect_brute", "isect_spheres_closest",
+                 "isect_spheres_any")
+KERNELS = (*ISECT_KERNELS, "delta_track", "ratio_track", "pathk")
 
 
 _last_phase = [time.time()]
+
+
+def launches_of(kernels) -> dict[str, int]:
+    """{kernel: its launches since its counter was last reset}."""
+    return {k: tracing.counter(f"launch.{k}") for k in kernels}
 
 
 def phase(n: int, msg: str) -> None:
@@ -1682,7 +1694,6 @@ def lbvh(dev, smi: str, reset_counts, read_counts, launches_a: dict) -> dict:
     config A loaded on the card and on the host (every tensor equal) and
     rendered from each; returns the phase's record."""
     from optix_renderer_tpu_torch.ops import bvh
-    from optix_renderer_tpu_torch.ops.cuda import lbvh as cuda_lbvh
     from optix_renderer_tpu_torch.render.render import render
     from optix_renderer_tpu_torch.scene.build import load_scene
     from optix_renderer_tpu_torch.scene.presets import (
@@ -1758,9 +1769,9 @@ def lbvh(dev, smi: str, reset_counts, read_counts, launches_a: dict) -> dict:
     # config A loaded on the card: one build chain, every tensor equal to
     # the host build's
     reset_counts()
-    cuda_lbvh.LAUNCHES["lbvh_build"] = 0
+    tracing.reset_counters("launch.lbvh_build")
     card_a, cfg_a, _ = load_scene(xml_a, dev)
-    launches = cuda_lbvh.LAUNCHES["lbvh_build"]
+    launches = tracing.counter("launch.lbvh_build")
     if launches != 1 or any(read_counts().values()):
         raise AssertionError(f"config A's load launched the build {launches} times, "
                              f"other kernels {read_counts()}")
@@ -1939,13 +1950,13 @@ def main() -> None:
     scene, cfg, _ = make_cornell_box(800, 600, 64, "path_mis", device=dev)
     cfg = dataclasses.replace(cfg, max_depth=16, rfilter="gaussian")
     render(scene, cfg, sample_count=16, device=dev)  # warm-up
-    pathk.LAUNCHES = 0
+    tracing.reset_counters("launch.pathk")
     torch.cuda.synchronize()
     t0 = time.time()
     out = render(scene, cfg, sample_count=64, device=dev)  # returns host numpy
     torch.cuda.synchronize()
     dt = time.time() - t0
-    launches = pathk.LAUNCHES
+    launches = tracing.counter("launch.pathk")
     comp = out["composite"]
     mpaths = cfg.width * cfg.height * 64 / dt / 1e6
     if launches < 1:
@@ -2107,13 +2118,12 @@ def main() -> None:
 
     # ---- 8. config A through render(): the LBVH kernels on the main path
     render(scene_a, cfg_a, sample_count=1, device=dev)  # warm-up
-    for k in isect.LAUNCHES:
-        isect.LAUNCHES[k] = 0
+    tracing.reset_counters("launch.isect_")
     torch.cuda.synchronize()
     t0 = time.time()
     out_a = render(scene_a, cfg_a, sample_count=4, device=dev)  # returns host numpy
     dt_a = time.time() - t0
-    launches_a = dict(isect.LAUNCHES)
+    launches_a = launches_of(ISECT_KERNELS)
     comp = out_a["composite"]
     print(f"  config A 800x600 path_mis depth 8 gaussian, 4 spp: {dt_a:.4f} s, "
           f"{800 * 600 * 4 / dt_a / 1e6:.4f} Mpaths/s on {smi}; launches {launches_a}; "
@@ -2192,13 +2202,12 @@ def main() -> None:
 
     # ---- 9. config B through render(): the brute-force kernel on the main path
     render(scene_b, cfg_b, sample_count=1, device=dev)  # warm-up
-    for k in isect.LAUNCHES:
-        isect.LAUNCHES[k] = 0
+    tracing.reset_counters("launch.isect_")
     torch.cuda.synchronize()
     t0 = time.time()
     out_b = render(scene_b, cfg_b, sample_count=4, device=dev)
     dt_b = time.time() - t0
-    launches_b = dict(isect.LAUNCHES)
+    launches_b = launches_of(ISECT_KERNELS)
     comp = out_b["composite"]
     print(f"  config B 800x600 mitchell path_mis depth 16, 4 spp: {dt_b:.4f} s, "
           f"{800 * 600 * 4 / dt_b / 1e6:.4f} Mpaths/s on {smi}; launches {launches_b}; "
@@ -2212,13 +2221,12 @@ def main() -> None:
                                                        device=dev)
     cfg_b252 = dataclasses.replace(cfg_b252, max_depth=16, rfilter="mitchell")
     render(scene_b252, cfg_b252, sample_count=1, device=dev)  # warm-up
-    for k in isect.LAUNCHES:
-        isect.LAUNCHES[k] = 0
+    tracing.reset_counters("launch.isect_")
     torch.cuda.synchronize()
     t0 = time.time()
     out_b252 = render(scene_b252, cfg_b252, sample_count=4, device=dev)
     dt_b252 = time.time() - t0
-    launches_b252 = dict(isect.LAUNCHES)
+    launches_b252 = launches_of(ISECT_KERNELS)
     comp = out_b252["composite"]
     print(f"  config B-252 800x600 mitchell path_mis depth 16, 4 spp: {dt_b252:.4f} s, "
           f"{800 * 600 * 4 / dt_b252 / 1e6:.4f} Mpaths/s on {smi}; launches {launches_b252}; "
@@ -2319,14 +2327,12 @@ def main() -> None:
                                                  device=dev)
     cfg_m = dataclasses.replace(cfg_m, max_depth=16, rfilter="gaussian")
     render(scene_m, cfg_m, sample_count=1, device=dev)  # warm-up
-    pathk.LAUNCHES = 0
-    for k in isect.LAUNCHES:
-        isect.LAUNCHES[k] = 0
+    tracing.reset_counters("launch.")
     torch.cuda.synchronize()
     t0 = time.time()
     out_m = render(scene_m, cfg_m, sample_count=16, device=dev)  # returns host numpy
     dt_m = time.time() - t0
-    launches_m, isect_m = pathk.LAUNCHES, dict(isect.LAUNCHES)
+    launches_m, isect_m = tracing.counter("launch.pathk"), launches_of(ISECT_KERNELS)
     comp = out_m["composite"]
     print(f"  config M 800x600 path_mis depth 16 gaussian, 16 spp: {dt_m:.4f} s, "
           f"{800 * 600 * 16 / dt_m / 1e6:.4f} Mpaths/s on {smi}; path kernel launches "
@@ -2398,10 +2404,12 @@ def main() -> None:
     from optix_renderer_tpu_torch.tools import probe_copy, prof_parts
     from optix_renderer_tpu_torch.tools.time_probes import alone_ms
 
-    probe_copy.LAUNCHES = prof_parts.LAUNCHES = 0
+    tracing.reset_counters("launch.probe_copy")
+    tracing.reset_counters("launch.iter_cost")
     pc = probe_copy.run(dev)
     parts = prof_parts.run(dev)
-    launches_pc, launches_ic = probe_copy.LAUNCHES, prof_parts.LAUNCHES
+    launches_pc = tracing.counter("launch.probe_copy")
+    launches_ic = tracing.counter("launch.iter_cost")
     if not (launches_pc >= 1 and launches_ic >= 1):
         raise AssertionError(f"a probe launched its kernel no time: {launches_pc}, {launches_ic}")
     if not (pc["rows_equal"] and pc["max_err"] <= 1e-6 * max(1.0, pc["scale"])):
@@ -2468,12 +2476,12 @@ def main() -> None:
                                      f"{err_ic}, not 0")
             if n_it == 64:
                 ic_plain[mode] = plain_ms
-        before = prof_parts.LAUNCHES
+        before = tracing.counter("launch.iter_cost")
         ic_info = torch.zeros((prof_parts.NB * prof_parts.CTAS, 2), dtype=torch.int32,
                               device=dev)
         prof_parts.iter_cost(x, tri, 64, mode, info=ic_info)
         torch.cuda.synchronize()
-        if prof_parts.LAUNCHES != before + 1:
+        if tracing.counter("launch.iter_cost") != before + 1:
             raise AssertionError(f"iter_cost {mode}: the launch was not counted")
         ic_sms[mode] = spread(ic_info, prof_parts.CTAS if mode == "reduce" else 1)
         if mode != "reduce" and ic_sms[mode] < min(128, n_sm):
@@ -2510,12 +2518,11 @@ def main() -> None:
         the counts set to 0 just before it and read just after."""
         if warm:
             render(scene, cfg, sample_count=warm, device=dev)
-        for k in isect.LAUNCHES:
-            isect.LAUNCHES[k] = 0
+        tracing.reset_counters("launch.isect_")
         torch.cuda.synchronize()
         t0 = time.time()
         out = render(scene, cfg, sample_count=spp, device=dev)  # returns host numpy
-        return out, time.time() - t0, dict(isect.LAUNCHES)
+        return out, time.time() - t0, launches_of(ISECT_KERNELS)
 
     # isect_brute launches per sample of the one 480,000-pixel chunk: one per
     # closest-hit trace and one per shadow ray (integrators/simple.py)
@@ -2696,15 +2703,11 @@ def main() -> None:
         """(film, s, launches) of one timed 1-spp `render()` after a 1-spp
         warm-up, the counts set to 0 just before it and read just after."""
         render(scene, cfg, sample_count=1, device=dev)
-        for counts in (isect.LAUNCHES, track.LAUNCHES):
-            for k in counts:
-                counts[k] = 0
-        pathk.LAUNCHES = 0
+        tracing.reset_counters("launch.")
         torch.cuda.synchronize()
         t0 = time.time()
         out = render(scene, cfg, sample_count=1, device=dev)  # returns host numpy
-        return out, time.time() - t0, {**isect.LAUNCHES, **track.LAUNCHES,
-                                       "pathk": pathk.LAUNCHES}
+        return out, time.time() - t0, launches_of(KERNELS)
 
     D = cfg_h.max_depth
     media_runs = {}
@@ -2714,7 +2717,7 @@ def main() -> None:
                              ("config_v_path_vol_mis", scene_v, cfg_v)):
         mis = cfg.integrator == "path_vol_mis"
         heterog = name.startswith("config_h")
-        want = {**{k: 0 for k in (*isect.LAUNCHES, *track.LAUNCHES, "pathk")},
+        want = {**{k: 0 for k in KERNELS},
                 "isect_brute": D * (9 if mis else 1),
                 "delta_track": D if heterog else 0, "ratio_track": 8 * D if heterog and mis else 0}
         if pathk.pathk_eligible(scene, cfg):
@@ -2772,13 +2775,10 @@ def main() -> None:
     from optix_renderer_tpu_torch.scene.data import BsdfType
 
     def reset_counts():
-        for counts in (isect.LAUNCHES, track.LAUNCHES):
-            for k in counts:
-                counts[k] = 0
-        pathk.LAUNCHES = 0
+        tracing.reset_counters("launch.")
 
     def read_counts():
-        return {**isect.LAUNCHES, **track.LAUNCHES, "pathk": pathk.LAUNCHES}
+        return launches_of(KERNELS)
 
     def synced(fn):
         """(fn(), its seconds with the device synchronized on both sides)."""

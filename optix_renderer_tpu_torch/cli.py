@@ -15,7 +15,10 @@ CMakeLists.txt:27,147,175), with the flags this package covers and
   every visible card; `parallel/shard.py`), `--distributed` over the
   processes of a `torch.distributed` group (`parallel/multihost.py`; only
   rank 0 writes files). A `<test>` root runs its statistical test instead
-  and returns 0 or 1;
+  and returns 0 or 1. `--trace-out FILE` runs the scene build and the
+  render under `torch.profiler` (the host and, on a card, the device) and
+  writes its chrome trace, where the program's spans (`utils/tracing.py`)
+  sit beside the device's kernels and copies;
 - `scaling` = paths/s on one device against the whole mesh, as JSON;
 - `test` = a `<test type="ttest"|"chi2test">` XML (`validation/xmltest.py`);
 - `tonemap` = the `tonemapper` EXR→PNG batch converter (hdrToLdr.cpp:22-40);
@@ -64,6 +67,26 @@ def _local_mesh(args):
     return make_mesh(devices=cards * (args.local_devices or 1))
 
 
+def _start_trace(device):
+    """A running `torch.profiler` session of the host and, on a card, the device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    prof = profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _write_trace(prof, device, path: str) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    prof.export_chrome_trace(path)
+    print(f"  trace → {path}")
+
+
 def cmd_render(args) -> int:
     from optix_renderer_tpu_torch.render.adaptive import render_adaptive
     from optix_renderer_tpu_torch.render.render import render, resolve_device
@@ -81,6 +104,11 @@ def cmd_render(args) -> int:
         from optix_renderer_tpu_torch.validation import run_xml_test
 
         return 0 if run_xml_test(root, device=device).ok else 1
+    if args.trace_out and (args.serve or mh_mesh):
+        print("error: --trace-out profiles one process's render, not --serve or --distributed",
+              file=sys.stderr)
+        return 2
+    prof = _start_trace(device) if args.trace_out else None
     scene, config, _ = build_scene(root, device)
     overrides = {}
     if args.spp:
@@ -155,6 +183,8 @@ def cmd_render(args) -> int:
             resume=args.resume,
         )
     dt = time.time() - t0
+    if prof is not None:
+        _write_trace(prof, device, args.trace_out)
     exr_path = out_base.with_suffix(".exr")
     iio.write_exr(exr_path, out["composite"])
     iio.write_png(out_base.with_suffix(".png"), out["composite"])
@@ -379,6 +409,9 @@ def main(argv=None) -> int:
                     "unauthenticated: use 0.0.0.0 only on trusted networks)")
     pr.add_argument("--sharded", action="store_true",
                     help="render over a mesh of devices (--local-devices)")
+    pr.add_argument("--trace-out", metavar="FILE",
+                    help="write a chrome trace of the scene build and the render "
+                         "(torch.profiler), the program's spans beside the device's events")
     pr.add_argument("-v", "--verbose", action="store_true")
     _add_mesh_flags(pr)
     pr.set_defaults(fn=cmd_render)

@@ -24,6 +24,7 @@ from optix_renderer_tpu_torch.ops import bsdf as bsdf_ops
 from optix_renderer_tpu_torch.ops import emitter as emitter_ops
 from optix_renderer_tpu_torch.render import sampler as smp
 from optix_renderer_tpu_torch.scene.data import RenderConfig, SceneData
+from optix_renderer_tpu_torch.utils import tracing
 
 
 def _segment(ray: Ray, ro, rd, bounce: int) -> Ray:
@@ -46,37 +47,43 @@ def li_path_mats(scene: SceneData, config: RenderConfig, ray: Ray, sampler):
     normal = torch.zeros((n, 3), device=dev)
     s = sampler
     for bounce in range(config.max_depth):
-        ctx = common.trace(scene, _segment(ray, ro, rd, bounce))
-        hit = ctx.its.valid & active
+        with tracing.span("scan.bounce", bounce=bounce):
+            if tracing.recording():  # the lanes entering the bounce, and those alive
+                tracing.count("scan.lanes", n)
+                tracing.count_device("scan.lanes_live", active)
+            with tracing.span("scan.intersect"):
+                ctx = common.trace(scene, _segment(ray, ro, rd, bounce))
+            hit = ctx.its.valid & active
 
-        # miss → envmap, terminate
-        L = L + t * common.miss_envmap(scene, rd, active & ~ctx.its.valid)
-        active = active & ctx.its.valid
+            # miss → envmap, terminate
+            L = L + t * common.miss_envmap(scene, rd, active & ~ctx.its.valid)
+            active = active & ctx.its.valid
 
-        if bounce == 0:
-            albedo, normal = common.first_hit_aovs(scene, ctx)
+            if bounce == 0:
+                albedo, normal = common.first_hit_aovs(scene, ctx)
 
-        L = L + torch.where(hit[..., None], t * common.hit_emitter_radiance(scene, ctx, rd), 0.0)
+            L = L + torch.where(hit[..., None], t * common.hit_emitter_radiance(scene, ctx, rd),
+                                0.0)
 
-        # Russian roulette after 3 bounces (path_mats.cpp:47-58)
-        s, u_rr = smp.next_1d(s)
-        succ = torch.clamp(torch.amax(t, dim=-1), max=0.99)
-        if bounce >= 3:
-            die = (u_rr > succ) & active
-            t = torch.where(active[..., None], t / torch.clamp(succ, min=1e-12)[..., None], t)
-            active = active & ~die
+            # Russian roulette after 3 bounces (path_mats.cpp:47-58)
+            s, u_rr = smp.next_1d(s)
+            succ = torch.clamp(torch.amax(t, dim=-1), max=0.99)
+            if bounce >= 3:
+                die = (u_rr > succ) & active
+                t = torch.where(active[..., None], t / torch.clamp(succ, min=1e-12)[..., None], t)
+                active = active & ~die
 
-        # BSDF sampling
-        wo_local = common.to_local(ctx, -normalize(rd))
-        s, u2 = smp.next_2d(s)
-        bs = bsdf_ops.sample_bsdf(scene.bsdfs, scene.textures, ctx.bsdf_id, wo_local,
-                                  ctx.its.uv, u2)
-        t = torch.where(active[..., None], t * bs.weight, t)
-        active = active & torch.any(torch.abs(t) > 1e-12, dim=-1)
+            # BSDF sampling
+            wo_local = common.to_local(ctx, -normalize(rd))
+            s, u2 = smp.next_2d(s)
+            bs = bsdf_ops.sample_bsdf(scene.bsdfs, scene.textures, ctx.bsdf_id, wo_local,
+                                      ctx.its.uv, u2)
+            t = torch.where(active[..., None], t * bs.weight, t)
+            active = active & torch.any(torch.abs(t) > 1e-12, dim=-1)
 
-        rd_new = common.to_world(ctx, bs.wo)
-        ro = torch.where(active[..., None], ctx.its.p, ro)
-        rd = torch.where(active[..., None], rd_new, rd)
+            rd_new = common.to_world(ctx, bs.wo)
+            ro = torch.where(active[..., None], ctx.its.p, ro)
+            rd = torch.where(active[..., None], rd_new, rd)
     return L, albedo, normal, s
 
 
@@ -95,62 +102,68 @@ def li_path_mis(scene: SceneData, config: RenderConfig, ray: Ray, sampler):
     normal = torch.zeros((n, 3), device=dev)
     s = sampler
     for bounce in range(config.max_depth):
-        ctx = common.trace(scene, _segment(ray, ro, rd, bounce))
-        first = bounce == 0
+        with tracing.span("scan.bounce", bounce=bounce):
+            if tracing.recording():  # the lanes entering the bounce, and those alive
+                tracing.count("scan.lanes", n)
+                tracing.count_device("scan.lanes_live", active)
+            with tracing.span("scan.intersect"):
+                ctx = common.trace(scene, _segment(ray, ro, rd, bounce))
+            first = bounce == 0
 
-        # miss → envmap, MIS-weighted against the NEE envmap pdf
-        pdf_env_dir = emitter_ops.pdf_envmap_direction(scene, rd) / float(n_lights)
-        denom_env = pdf_mats_prev + pdf_env_dir
-        w_env = torch.where(denom_env > EPSILON,
-                            pdf_mats_prev / torch.clamp(denom_env, min=1e-20), 1.0)
-        w_env = torch.where(prev_discrete | first, 1.0, w_env)
-        env = common.miss_envmap(scene, rd, active & ~ctx.its.valid)
-        L = L + w_env[..., None] * t * env
-        active = active & ctx.its.valid
+            # miss → envmap, MIS-weighted against the NEE envmap pdf
+            pdf_env_dir = emitter_ops.pdf_envmap_direction(scene, rd) / float(n_lights)
+            denom_env = pdf_mats_prev + pdf_env_dir
+            w_env = torch.where(denom_env > EPSILON,
+                                pdf_mats_prev / torch.clamp(denom_env, min=1e-20), 1.0)
+            w_env = torch.where(prev_discrete | first, 1.0, w_env)
+            env = common.miss_envmap(scene, rd, active & ~ctx.its.valid)
+            L = L + w_env[..., None] * t * env
+            active = active & ctx.its.valid
 
-        if first:
-            albedo, normal = common.first_hit_aovs(scene, ctx)
+            if first:
+                albedo, normal = common.first_hit_aovs(scene, ctx)
 
-        # emitter hit with the lazily computed w_mats (path_mis.cpp:51-56, 119-133)
-        hit_em = active & (ctx.emitter_id >= 0)
-        pdf_ems_here = emitter_ops.pdf_hit_emitter(
-            scene, ctx.emitter_id, ro, ctx.its.p, ctx.frame.n, normalize(rd)) / float(n_lights)
-        denom = pdf_mats_prev + pdf_ems_here
-        w_mats = torch.where(denom > EPSILON, pdf_mats_prev / torch.clamp(denom, min=1e-20),
-                             w_mats_prev)
-        w_mats = torch.where(prev_discrete | first, 1.0, w_mats)
-        L = L + torch.where(hit_em[..., None],
-                            w_mats[..., None] * t * common.hit_emitter_radiance(scene, ctx, rd),
-                            0.0)
+            # emitter hit with the lazily computed w_mats (path_mis.cpp:51-56, 119-133)
+            hit_em = active & (ctx.emitter_id >= 0)
+            pdf_ems_here = emitter_ops.pdf_hit_emitter(
+                scene, ctx.emitter_id, ro, ctx.its.p, ctx.frame.n, normalize(rd)) / float(n_lights)
+            denom = pdf_mats_prev + pdf_ems_here
+            w_mats = torch.where(denom > EPSILON, pdf_mats_prev / torch.clamp(denom, min=1e-20),
+                                 w_mats_prev)
+            w_mats = torch.where(prev_discrete | first, 1.0, w_mats)
+            L = L + torch.where(hit_em[..., None],
+                                w_mats[..., None] * t * common.hit_emitter_radiance(scene, ctx, rd),
+                                0.0)
 
-        # Russian roulette from the first vertex (path_mis.cpp:58-71)
-        s, u_rr = smp.next_1d(s)
-        succ = torch.clamp(torch.amax(t, dim=-1), EPSILON, 0.99)
-        die = (u_rr > succ) & active
-        t = torch.where(active[..., None], t / succ[..., None], t)
-        active = active & ~die
+            # Russian roulette from the first vertex (path_mis.cpp:58-71)
+            s, u_rr = smp.next_1d(s)
+            succ = torch.clamp(torch.amax(t, dim=-1), EPSILON, 0.99)
+            die = (u_rr > succ) & active
+            t = torch.where(active[..., None], t / succ[..., None], t)
+            active = active & ~die
 
-        # NEE (path_mis.cpp:74-106)
-        wo_local = common.to_local(ctx, -normalize(rd))
-        s, u_pick = smp.next_1d(s)
-        em_id = common.pick_emitter(scene, u_pick)
-        s, u_ems = smp.next_3d(s)
-        ems_contrib, pdf_ems, pdf_mat_at_ems, _ = common.nee(
-            scene, ctx, wo_local, em_id, u_ems, n_lights=n_lights)
-        w_ems = torch.where(pdf_ems + pdf_mat_at_ems > EPSILON,
-                            pdf_ems / torch.clamp(pdf_ems + pdf_mat_at_ems, min=1e-20), 0.0)
+            # NEE (path_mis.cpp:74-106)
+            wo_local = common.to_local(ctx, -normalize(rd))
+            s, u_pick = smp.next_1d(s)
+            em_id = common.pick_emitter(scene, u_pick)
+            s, u_ems = smp.next_3d(s)
+            with tracing.span("scan.nee"):
+                ems_contrib, pdf_ems, pdf_mat_at_ems, _ = common.nee(
+                    scene, ctx, wo_local, em_id, u_ems, n_lights=n_lights)
+            w_ems = torch.where(pdf_ems + pdf_mat_at_ems > EPSILON,
+                                pdf_ems / torch.clamp(pdf_ems + pdf_mat_at_ems, min=1e-20), 0.0)
 
-        # BSDF sampling (path_mis.cpp:108-133)
-        s, u_mats = smp.next_2d(s)
-        bs = bsdf_ops.sample_bsdf(scene.bsdfs, scene.textures, ctx.bsdf_id, wo_local,
-                                  ctx.its.uv, u_mats)
-        w_ems = torch.where(bs.is_discrete, 0.0, w_ems)  # path_mis.cpp:135-140
+            # BSDF sampling (path_mis.cpp:108-133)
+            s, u_mats = smp.next_2d(s)
+            bs = bsdf_ops.sample_bsdf(scene.bsdfs, scene.textures, ctx.bsdf_id, wo_local,
+                                      ctx.its.uv, u_mats)
+            w_ems = torch.where(bs.is_discrete, 0.0, w_ems)  # path_mis.cpp:135-140
 
-        L = L + torch.where(active[..., None], w_ems[..., None] * t * ems_contrib, 0.0)
-        t = torch.where(active[..., None], t * bs.weight, t)
-        active = active & torch.any(torch.abs(t) > 1e-12, dim=-1)
+            L = L + torch.where(active[..., None], w_ems[..., None] * t * ems_contrib, 0.0)
+            t = torch.where(active[..., None], t * bs.weight, t)
+            active = active & torch.any(torch.abs(t) > 1e-12, dim=-1)
 
-        ro = torch.where(active[..., None], ctx.its.p, ro)
-        rd = torch.where(active[..., None], common.to_world(ctx, bs.wo), rd)
-        pdf_mats_prev, prev_discrete, w_mats_prev = bs.pdf, bs.is_discrete, w_mats
+            ro = torch.where(active[..., None], ctx.its.p, ro)
+            rd = torch.where(active[..., None], common.to_world(ctx, bs.wo), rd)
+            pdf_mats_prev, prev_discrete, w_mats_prev = bs.pdf, bs.is_discrete, w_mats
     return L, albedo, normal, s

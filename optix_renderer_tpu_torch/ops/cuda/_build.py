@@ -16,13 +16,15 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
+
+from optix_renderer_tpu_torch.utils import tracing
 
 PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("mega.cuh", "walk.cuh", "pathk.cu", "isect.cu", "probes.cu", "track.cu", "lbvh.cu")
+SOURCES = ("mega.cuh", "walk.cuh", "pathk.cu", "isect.cu", "probes.cu", "track.cu", "lbvh.cu",
+           "count.cu")
 UNITS = tuple(name for name in SOURCES if name.endswith(".cu"))
 # no --use_fast_math: the samplers go through logf/sinf/cosf and must keep
 # full-precision results to track the plain version per pixel.
@@ -34,7 +36,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None  # the loaded library, once per process
-last_build = {}  # {"path", "seconds", "ptxas"} of the build or load in this process
+last_build = {}  # {"path", "ptxas"} of the build or load in this process; the time is
+# the span `kernels.load` (utils/tracing.py)
 
 
 def _nvcc() -> str:
@@ -52,12 +55,13 @@ def library_path() -> Path:
     return BUILD_DIR / f"libpathk_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the sources unless a library for this hash exists; returns its path."""
+def build() -> tuple[Path, bool]:
+    """Compile the sources unless a library for this hash exists; returns its
+    path and whether it was compiled."""
     out = library_path()
-    t0 = time.time()
     ptxas = ""
-    if not out.exists():
+    compiled = not out.exists()
+    if compiled:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tag = f"{out.stem}.{os.getpid()}"
         objs = [BUILD_DIR / f"{Path(u).stem}.{tag}.o" for u in UNITS]
@@ -81,15 +85,19 @@ def build() -> Path:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n"
                                f"{proc.stderr}")
         os.replace(tmp, out)  # atomic: concurrent builders never load a partial file
-    last_build.update(path=str(out), seconds=time.time() - t0, ptxas=ptxas)
-    return out
+    last_build.update(path=str(out), ptxas=ptxas)
+    return out, compiled
 
 
 def load() -> ctypes.CDLL:
     """Build if needed and load the library, with its C signatures declared."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+    if _lib is not None:
+        return _lib
+    with tracing.setup_span("kernels.load") as span:
+        path, compiled = build()
+        span.set(built="compiled" if compiled else "loaded")
+        lib = ctypes.CDLL(str(path))
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.pathk_trace_launch.argtypes = [
             vp, vp, vp, vp,  # out, scal_f, em_rows, env
@@ -184,6 +192,8 @@ def load() -> ctypes.CDLL:
             vp,  # stream
         ]
         lib.lbvh_pairs_launch.restype = i
+        lib.count_true_launch.argtypes = [vp, ll, vp, vp]  # bool mask, n, int64 acc, stream
+        lib.count_true_launch.restype = i
         lib.pathk_error_string.argtypes = [i]
         lib.pathk_error_string.restype = ctypes.c_char_p
         _lib = lib

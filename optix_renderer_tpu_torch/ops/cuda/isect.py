@@ -30,7 +30,9 @@ All three refuse
 tensors that require grad (`refuse_graph`): the caller detaches them and
 replays the winner (`ops/intersect.py`). A CPU tensor runs
 the plain version; a CUDA tensor launches the kernel or raises. Each wrapper
-adds one to `LAUNCHES[name]` where it launches its kernel, and nowhere else.
+adds one to the counter `launch.<name>` (`utils/tracing.py`) where it
+launches its kernel, and nowhere else: `isect_bvh_closest`, `isect_bvh_any`,
+`isect_brute`, `isect_spheres_closest`, `isect_spheres_any`.
 """
 
 from __future__ import annotations
@@ -48,10 +50,7 @@ from optix_renderer_tpu_torch.ops.bvh import (
     traverse_spheres_ref,
 )
 from optix_renderer_tpu_torch.ops.cuda import _build
-
-# kernel launches by the wrappers (not by the plain versions)
-LAUNCHES = {"isect_bvh_closest": 0, "isect_bvh_any": 0, "isect_brute": 0,
-            "isect_spheres_closest": 0, "isect_spheres_any": 0}
+from optix_renderer_tpu_torch.utils import tracing
 
 # ray-triangle pairs per step of the plain sweep (bounds its [N, chunk] temporaries)
 _SWEEP_PAIRS = 1 << 22
@@ -146,7 +145,7 @@ def _launch(entry: str, name: str, *args, device):
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc} "
                            f"({_build.error_string(rc)})")
-    LAUNCHES[name] += 1
+    tracing.count(f"launch.{name}")
 
 
 def _check_depth(bvh):

@@ -11,7 +11,8 @@ Its plain version is the numpy builder of `ops/bvh.py` (`build_bvh_tables`
 / `build_sphere_tables`, then `pack_child_pairs` and `pairs_depth`), which
 its tables equal bit for bit; `ops/bvh.py: build_bvh` / `build_sphere_bvh`
 take one or the other by device. This wrapper refuses CPU tensors. It adds
-one to `LAUNCHES["lbvh_build"]` per chain it launches, and nowhere else.
+one to the counter `launch.lbvh_build` (`utils/tracing.py`) per chain it
+launches, and nowhere else; each call is the span `scene.lbvh`.
 """
 
 from __future__ import annotations
@@ -22,9 +23,7 @@ import torch
 
 from optix_renderer_tpu_torch.ops.bvh import LEAF_SIZE, PAIR_COLS, lbvh_depth, lbvh_levels
 from optix_renderer_tpu_torch.ops.cuda import _build
-
-# chains launched by the wrapper (one per tree built)
-LAUNCHES = {"lbvh_build": 0}
+from optix_renderer_tpu_torch.utils import tracing
 
 
 def _ptr(t) -> ctypes.c_void_p:
@@ -36,6 +35,7 @@ def _check(rc: int, entry: str) -> None:
         raise RuntimeError(f"{entry} failed: cudaError {rc} ({_build.error_string(rc)})")
 
 
+@tracing.traced("scene.lbvh")
 def lbvh_build(v0, v1, v2, radius=None):
     """LBVH over n primitives on the card → (packed [Nn, 8], leaf, pairs
     [n_pairs, 16] float32 tensors on the inputs' device, depth int).
@@ -90,5 +90,5 @@ def lbvh_build(v0, v1, v2, radius=None):
         order = torch.sort(pkey).values if n_leaves > 1 else pkey
         _check(lib.lbvh_pairs_launch(_ptr(packed), _ptr(order), _ptr(row_of), n_leaves,
                                      _ptr(pairs), stream), "lbvh_pairs_launch")
-    LAUNCHES["lbvh_build"] += 1
+    tracing.count("launch.lbvh_build")
     return packed, leaf, pairs, lbvh_depth(n_leaves)

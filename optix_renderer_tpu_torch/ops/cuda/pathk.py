@@ -100,6 +100,7 @@ from optix_renderer_tpu_torch.ops.cuda.mega import (
     where,
 )
 from optix_renderer_tpu_torch.scene.data import host_snapshot
+from optix_renderer_tpu_torch.utils import tracing
 
 VPU_MAX_TRIS = 64  # above this, the medium branch (the JAX kernel's MXU branch)
 OUT_ROWS = 16
@@ -116,10 +117,6 @@ TR_COLS = 48
 # 32 lens_radius, 33 focal_distance, 34 near_clip, 35 far_clip,
 # 36 1/width, 37 1/height, 38:40 pad
 SF_COLS = 40
-
-# kernel launches by `pathk_trace` (not by the plain version)
-LAUNCHES = 0
-
 
 # ---------------------------------------------------------------------------
 # host-side packing
@@ -143,6 +140,7 @@ _PACKED = ("geometry", "shapes", "bsdfs", "textures", "emitters", "emitter_pick"
            "envmap")
 
 
+@tracing.traced("dispatch.pack")
 def build_pathk_tables(scene, config, device="cpu"):
     """Host packing → (dict of float32 tensors on `device`, static metadata).
 
@@ -755,7 +753,6 @@ def pathk_trace(tables, meta, config, *, n_pix, spp0, n_spp, pix0=0):
     VPU_MAX_TRIS triangles, `pathk_staged_kernel<MIS>` above), or raise. Returns float32
     [16, n_pix] on the tables' device.
     """
-    global LAUNCHES
     device = tables["em_rows"].device
     if device.type == "cpu":
         return pathk_trace_ref(tables, meta, config, n_pix=n_pix, spp0=spp0, n_spp=n_spp,
@@ -789,7 +786,7 @@ def pathk_trace(tables, meta, config, *, n_pix, spp0, n_spp, pix0=0):
         )
     if rc != 0:
         raise RuntimeError(f"pathk kernel launch failed: cudaError {rc} ({_build.error_string(rc)})")
-    LAUNCHES += 1
+    tracing.count("launch.pathk")  # launches by the kernel, not by the plain version
     return out
 
 

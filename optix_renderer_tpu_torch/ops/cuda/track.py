@@ -8,7 +8,9 @@ thread, then moves every lane's pcg32 state on by the lockstep loop's draws
 lockstep loops, are `ops/volume_grid.py: delta_track_ref / ratio_track_ref`,
 which `ops/volume_grid.py: delta_track / ratio_track` run on CPU tensors;
 this wrapper takes CUDA tensors only and launches the kernel or raises. It
-adds one to `LAUNCHES[name]` where it launches and nowhere else.
+adds one to the counter `launch.delta_track` or `launch.ratio_track`
+(`utils/tracing.py`) where it launches (each one walk and one advance) and
+nowhere else.
 """
 
 from __future__ import annotations
@@ -20,9 +22,7 @@ import torch
 from optix_renderer_tpu_torch.core.rng import Pcg32State
 from optix_renderer_tpu_torch.ops.cuda import _build
 from optix_renderer_tpu_torch.ops.cuda.isect import _ptr, refuse_graph
-
-# kernel launches by the wrapper (each one walk and one advance)
-LAUNCHES = {"delta_track": 0, "ratio_track": 0}
+from optix_renderer_tpu_torch.utils import tracing
 
 
 def _check(name, x, dtype, shape, device, align: int = 0):
@@ -85,5 +85,5 @@ def track(ratio: bool, media, med_id, state: Pcg32State, ro, rd, t_max):
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc} "
                            f"({_build.error_string(rc)})")
-    LAUNCHES[name] += 1
+    tracing.count(f"launch.{name}")
     return out, k, Pcg32State(new_hi, new_lo, state.inc_hi, state.inc_lo), iters

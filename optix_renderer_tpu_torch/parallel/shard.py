@@ -66,6 +66,7 @@ from optix_renderer_tpu_torch.render.render import (
     sample_loop,
 )
 from optix_renderer_tpu_torch.scene.data import RenderConfig, SceneData
+from optix_renderer_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -246,6 +247,7 @@ def sharded_step(scene: SceneData, config: RenderConfig, mesh: DeviceMesh, kerne
     return step
 
 
+@tracing.traced("render")
 def render_sharded(
     scene: SceneData,
     config: RenderConfig,
@@ -280,31 +282,32 @@ def render_sharded(
     from optix_renderer_tpu_torch.ops.cuda import pathk
     from optix_renderer_tpu_torch.render.mega_render import GROUP
 
-    mesh = mesh if mesh is not None else make_mesh()
-    first = mesh.first
-    scene = preprocess(scene, config, first)
-    spp = sample_count if sample_count is not None else config.sample_count
-    n_sample = mesh.shape[1]
-    kernel = mega is not False and not config.adaptive and pathk.pathk_eligible(scene, config)
+    with tracing.span("render.dispatch"):
+        mesh = mesh if mesh is not None else make_mesh()
+        first = mesh.first
+        scene = preprocess(scene, config, first)
+        spp = sample_count if sample_count is not None else config.sample_count
+        n_sample = mesh.shape[1]
+        kernel = mega is not False and not config.adaptive and pathk.pathk_eligible(scene, config)
 
-    acc = torch.zeros((3, config.height, config.width, 4), dtype=torch.float32, device=first)
-    start_spp = 0
-    if resume and checkpoint_path and os.path.exists(_norm_ckpt_path(checkpoint_path)):
-        acc, start_spp = load_checkpoint(checkpoint_path, config, first)
-        if not kernel and start_spp % n_sample:
-            raise ValueError(
-                f"checkpoint holds {start_spp} samples, which is not a multiple of this mesh's "
-                f"sample axis ({n_sample}): resume with the original device layout or finish "
-                "the render on one device")
-        if verbose:
-            print(f"  resumed at sample {start_spp} from {checkpoint_path}")
+        acc = torch.zeros((3, config.height, config.width, 4), dtype=torch.float32, device=first)
+        start_spp = 0
+        if resume and checkpoint_path and os.path.exists(_norm_ckpt_path(checkpoint_path)):
+            acc, start_spp = load_checkpoint(checkpoint_path, config, first)
+            if not kernel and start_spp % n_sample:
+                raise ValueError(
+                    f"checkpoint holds {start_spp} samples, which is not a multiple of this mesh's "
+                    f"sample axis ({n_sample}): resume with the original device layout or finish "
+                    "the render on one device")
+            if verbose:
+                print(f"  resumed at sample {start_spp} from {checkpoint_path}")
 
-    step = sharded_step(scene, config, mesh, kernel)
-    if kernel:
-        group = min(GROUP, preview_every or GROUP, checkpoint_every or GROUP)
-    else:
-        group = n_sample
-        spp = -(-spp // n_sample) * n_sample
+        step = sharded_step(scene, config, mesh, kernel)
+        if kernel:
+            group = min(GROUP, preview_every or GROUP, checkpoint_every or GROUP)
+        else:
+            group = n_sample
+            spp = -(-spp // n_sample) * n_sample
     writes = mesh.world == 1 or _rank() == 0
     spp_done = sample_loop(acc, step, group, spp, start_spp, config, verbose=verbose and writes,
                            preview_every=preview_every,

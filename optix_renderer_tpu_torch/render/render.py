@@ -31,6 +31,7 @@ from optix_renderer_tpu_torch.ops import camera as camera_ops
 from optix_renderer_tpu_torch.render import film
 from optix_renderer_tpu_torch.render import sampler as smp
 from optix_renderer_tpu_torch.scene.data import RenderConfig, SceneData
+from optix_renderer_tpu_torch.utils import tracing
 from optix_renderer_tpu_torch.utils.device import resolve_device
 
 # Upper bound on rays in flight per chunk: at 2^19 lanes an 800×600 frame is
@@ -93,19 +94,23 @@ def load_checkpoint(path: str, config: RenderConfig, device="cuda"):
         return torch.from_numpy(z["acc"]).to(device), int(z["spp_done"])
 
 
+@tracing.traced("render.readout")
 def _layers_out(acc) -> dict[str, np.ndarray]:
     """[3,H,W,4] accumulator → numpy layers. On the path-kernel path channel 3
     counts samples, so `weights` is the number of samples per pixel; on the
     scan path it sums filter weights. The division runs where the film lies
     (float32 division rounds alike in torch and numpy, so the layers are the
     host formula's bit for bit); a film on the card then comes to the host
-    in one wait, its copies queued into pinned memory."""
+    in one wait, its copies queued into pinned memory (the span
+    `readout.wait`, where the request's device counters are folded too)."""
     a = acc.detach()
     w = a[..., 3:4]
     layers = torch.where(w > 1e-9, a[..., :3] / torch.clamp_min(w, 1e-9), 0.0)
     layers, weights = (x.to("cpu", non_blocking=True) for x in (layers, a[0, ..., 3]))
-    if a.is_cuda:
-        torch.cuda.synchronize(a.device)
+    with tracing.span("readout.wait"):
+        if a.is_cuda:
+            torch.cuda.synchronize(a.device)
+        tracing.fold_device()
     layers = layers.numpy()
     return {
         "composite": layers[0],
@@ -143,13 +148,15 @@ def render_round(scene: SceneData, config: RenderConfig, pixel_ids, sample_idx) 
     return film.splat(config.width, config.height, config.rfilter, pos, layers)
 
 
+@tracing.traced("scan.round")
 def render_round_accumulate(acc, scene: SceneData, config: RenderConfig, pixel_ids,
                             sample_idx) -> None:
     """One sample round for `pixel_ids` [N] int64 (negative ids are padding
     lanes, outside the image), splatted into `acc` [3,H,W,4] in place;
     `sample_idx` as in `_round_layers`."""
     pos, layers = _round_layers(scene, config, pixel_ids, sample_idx)
-    film.splat_(acc, config.rfilter, pos, layers)
+    with tracing.span("scan.splat"):
+        film.splat_(acc, config.rfilter, pos, layers)
 
 
 def scan_step(scene: SceneData, config: RenderConfig, device: torch.device):
@@ -232,24 +239,29 @@ def render(
             scene, config, sample_count=sample_count, verbose=verbose,
             preview_every_iters=preview_every * 4 if preview_every else 0,
             preview_callback=preview_callback, device=device)
-    scene = preprocess(scene, config, device)
-    if mega is not False and pathk_eligible(scene, config):
-        step, group = mega_step(scene, config, device), GROUP
-    else:
-        step, group = scan_step(scene, config, device), 1
-    group = min(group, preview_every or group, checkpoint_every or group)
     spp = sample_count if sample_count is not None else config.sample_count
+    with tracing.span("render", spp=spp, pixels=config.width * config.height) as root:
+        with tracing.span("render.dispatch"):
+            scene = preprocess(scene, config, device)
+            if mega is not False and pathk_eligible(scene, config):
+                step, group, path = mega_step(scene, config, device), GROUP, "pathk"
+            else:
+                step, group, path = scan_step(scene, config, device), 1, "scan"
+            root.set(path=path)
+            group = min(group, preview_every or group, checkpoint_every or group)
 
-    acc = torch.zeros((3, config.height, config.width, 4), dtype=torch.float32, device=device)
-    start_spp = 0
-    if resume and checkpoint_path and os.path.exists(_norm_ckpt_path(checkpoint_path)):
-        acc, start_spp = load_checkpoint(checkpoint_path, config, device)
-        if verbose:
-            print(f"  resumed at sample {start_spp} from {checkpoint_path}")
-    spp_done = sample_loop(acc, step, group, spp, start_spp, config, verbose=verbose,
-                           preview_every=preview_every, preview_callback=preview_callback,
-                           checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every)
-    out = _layers_out(acc)
+            acc = torch.zeros((3, config.height, config.width, 4), dtype=torch.float32,
+                              device=device)
+            start_spp = 0
+            if resume and checkpoint_path and os.path.exists(_norm_ckpt_path(checkpoint_path)):
+                acc, start_spp = load_checkpoint(checkpoint_path, config, device)
+                if verbose:
+                    print(f"  resumed at sample {start_spp} from {checkpoint_path}")
+        spp_done = sample_loop(acc, step, group, spp, start_spp, config, verbose=verbose,
+                               preview_every=preview_every, preview_callback=preview_callback,
+                               checkpoint_path=checkpoint_path,
+                               checkpoint_every=checkpoint_every)
+        out = _layers_out(acc)
     out["spp_done"] = spp_done
     return out
 
@@ -271,7 +283,8 @@ def sample_loop(acc, step, group: int, spp: int, start_spp: int, config: RenderC
         while spp_done < spp:
             n = min(group, spp - spp_done)
             at_boundary = False
-            step(acc, spp_done, n)
+            with tracing.span("render.step", sample=spp_done, n=n):
+                step(acc, spp_done, n)
             spp_done += n
             at_boundary = True
             if verbose:

@@ -43,6 +43,7 @@ from optix_renderer_tpu_torch.render import film
 from optix_renderer_tpu_torch.render import sampler as smp
 from optix_renderer_tpu_torch.render.render import _layers_out, preprocess, resolve_device
 from optix_renderer_tpu_torch.scene.data import RenderConfig, SceneData
+from optix_renderer_tpu_torch.utils import tracing
 
 # integrators with a wavefront bounce body; the others keep the scan path
 WAVEFRONT_INTEGRATORS = ("path_mats", "path_mis")
@@ -267,6 +268,7 @@ def wavefront_iter(acc: torch.Tensor, state: PathState, scene: SceneData, config
     return state, state.active.sum()
 
 
+@tracing.traced("render")
 def render_wavefront(
     scene: SceneData,
     config: RenderConfig,
@@ -288,19 +290,20 @@ def render_wavefront(
     if config.integrator not in WAVEFRONT_INTEGRATORS:
         raise ValueError(f"no wavefront bounce body for '{config.integrator}'; "
                          f"it has {WAVEFRONT_INTEGRATORS}")
-    device = resolve_device(device)
-    scene = preprocess(scene, config, device).to(device)
-    spp = sample_count if sample_count is not None else config.sample_count
-    w, h = config.width, config.height
-    n_pix = w * h
-    total = n_pix * spp
-    assert total < 2**31, "work items are numbered in int32, as in the JAX package"
-    n = min(n_lanes, total)
+    with tracing.span("render.dispatch"):
+        device = resolve_device(device)
+        scene = preprocess(scene, config, device).to(device)
+        spp = sample_count if sample_count is not None else config.sample_count
+        w, h = config.width, config.height
+        n_pix = w * h
+        total = n_pix * spp
+        assert total < 2**31, "work items are numbered in int32, as in the JAX package"
+        n = min(n_lanes, total)
 
-    if acc is None:
-        acc = torch.zeros((3, h, w, 4), dtype=torch.float32, device=device)
-    state = init_state(n, seed=config.seed, device=device)
-    s2c = camera_ops.sample_to_camera_matrix(scene.camera.to("cpu"), w, h).to(device)
+        if acc is None:
+            acc = torch.zeros((3, h, w, 4), dtype=torch.float32, device=device)
+        state = init_state(n, seed=config.seed, device=device)
+        s2c = camera_ops.sample_to_camera_matrix(scene.camera.to("cpu"), w, h).to(device)
 
     # a hard bound: every lane retires a work item within max_depth iterations
     max_iters = (total // n + 2) * config.max_depth + config.max_depth + 4

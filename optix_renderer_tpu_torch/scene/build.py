@@ -61,6 +61,7 @@ from optix_renderer_tpu_torch.scene.data import (
 from optix_renderer_tpu_torch.utils.device import resolve_device
 from optix_renderer_tpu_torch.scene.parser import SceneNode, load_from_xml
 from optix_renderer_tpu_torch.utils import imageio as iio
+from optix_renderer_tpu_torch.utils import tracing
 
 __all__ = ["SceneBuildError", "build_bsdf_table", "build_scene", "load_scene"]
 
@@ -649,6 +650,7 @@ class _Builder:
         return scene.to(self.device), config, extras
 
 
+@tracing.traced("scene.load", setup=True)
 def build_scene(root: SceneNode, device="cuda") -> tuple[SceneData, RenderConfig, dict]:
     """SceneNode tree → (SceneData, RenderConfig, extras), the scene's
     tensors on `device` (the card unless the caller asks for the CPU;

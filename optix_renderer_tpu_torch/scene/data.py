@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from optix_renderer_tpu_torch.ops import bvh as bvh_ops
+from optix_renderer_tpu_torch.utils import tracing
 
 
 class BsdfType:
@@ -129,6 +130,7 @@ class _Tables:
         return self._map(lambda v: v.detach())
 
 
+@tracing.traced("dispatch.snapshot")
 def host_snapshot(x):
     """`x` (a table, a tensor, or a tuple / dict of them) with every tensor
     detached on the host, in one wait: each copy from a card is queued into

@@ -28,14 +28,13 @@ import ctypes
 import numpy as np
 import torch
 
+from optix_renderer_tpu_torch.utils import tracing
+
 C, CS, W = 16, 64, 1024
 OUT_ROWS = 8
 # the kernel's column tile, and its CTAs: one per (tile, flagged slab)
 TILE_COLS = 64
 CTAS = W // TILE_COLS * C // 2
-
-# kernel launches by `probe_copy` (not by the plain version)
-LAUNCHES = 0
 
 
 def make_inputs(device="cpu"):
@@ -118,7 +117,6 @@ def _launch(x, sel, out, info=None) -> None:
     chip_smoke.py: the check of `sel` waits for the device). `info`: an
     optional int32 [CTAS, 2] on the device that receives each CTA's SM and
     its cluster's CTA count."""
-    global LAUNCHES
     from optix_renderer_tpu_torch.ops.cuda import _build
 
     if info is not None and (info.shape != (CTAS, 2) or info.dtype != torch.int32
@@ -132,7 +130,7 @@ def _launch(x, sel, out, info=None) -> None:
     if rc != 0:
         raise RuntimeError(f"probe_copy kernel launch failed: cudaError {rc} "
                            f"({_build.error_string(rc)})")
-    LAUNCHES += 1
+    tracing.count("launch.probe_copy")  # launches by the kernel, not by the plain version
 
 
 def empty_launch(device) -> None:

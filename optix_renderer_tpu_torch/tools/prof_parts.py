@@ -39,6 +39,7 @@ import torch
 
 from optix_renderer_tpu_torch.ops.bvh import mt_lanes
 from optix_renderer_tpu_torch.ops.cuda import pathk
+from optix_renderer_tpu_torch.utils import tracing
 
 NB = 32
 S, L = 8, 512
@@ -51,9 +52,6 @@ MODES = ("empty", "reduce", "madd100", "isect")
 # published boost clock
 SMS, ISSUE_PER_CLOCK, BOOST_HZ = 132, 4, 1.98e9
 ITERS = (64, 1024)
-
-# kernel launches by `iter_cost` (not by the plain version)
-LAUNCHES = 0
 
 
 def make_inputs(device="cpu", nb: int = NB):
@@ -149,7 +147,6 @@ def iter_cost(x, tri, n_it: int, mode: str, info=None):
     [nb · CTAS, 2] on the device, receives each CTA's SM and its cluster's
     CTA count (4 for `reduce`, whose groups launch as clusters; 1 for the
     other modes)."""
-    global LAUNCHES
     if x.device.type == "cpu":
         return iter_cost_ref(x, tri, n_it, mode)
     if x.device.type != "cuda":
@@ -179,7 +176,7 @@ def iter_cost(x, tri, n_it: int, mode: str, info=None):
     if rc != 0:
         raise RuntimeError(f"iter_cost kernel launch failed: cudaError {rc} "
                            f"({_build.error_string(rc)})")
-    LAUNCHES += 1
+    tracing.count("launch.iter_cost")  # launches by the kernel, not by the plain version
     return out
 
 

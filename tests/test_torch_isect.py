@@ -31,6 +31,7 @@ from optix_renderer_tpu_torch.ops import bvh
 from optix_renderer_tpu_torch.ops.cuda import isect
 from optix_renderer_tpu_torch.scene import presets
 from optix_renderer_tpu_torch.scene.data import Bvh
+from optix_renderer_tpu_torch.utils import tracing
 
 
 def _soup(rng, n):
@@ -153,7 +154,7 @@ def test_wrappers_run_the_plain_versions_on_cpu(mesh):
     rays = tuple(map(T, _rays(rng, 512)))
     tri = T(np.concatenate([v0, v1 - v0, v2 - v0], axis=1))
     tables = Bvh(packed=T(packed), leaf=T(leaf), pairs=T(bvh.pack_child_pairs(packed)))
-    before = dict(isect.LAUNCHES)
+    before = tracing.counters("launch.")
     got = isect.isect_bvh(tables, *rays, with_visits=True)
     ref = bvh.traverse_pairs_ref(tables.pairs, tables.leaf, *rays, with_visits=True)
     for a, b in zip(got, ref):
@@ -167,4 +168,4 @@ def test_wrappers_run_the_plain_versions_on_cpu(mesh):
     # the brute sweep finds the LBVH walk's closest hits
     brute = isect.isect_brute(tri, *rays)
     assert torch.equal(brute[0], got[0]) and torch.equal(brute[1], got[1])
-    assert isect.LAUNCHES == before
+    assert tracing.counters("launch.") == before

@@ -34,6 +34,7 @@ from optix_renderer_tpu_torch.ops.camera import sample_ray
 from optix_renderer_tpu_torch.ops.cuda import isect
 from optix_renderer_tpu_torch.scene import presets
 from optix_renderer_tpu_torch.tools.time_isect import brute_bound, sweep_loops
+from optix_renderer_tpu_torch.utils import tracing
 
 
 def _f32(x):
@@ -72,9 +73,9 @@ def test_isect_brute_matches_mt_jnp(t_cnt):
     j_t, _, _, j_idf = jax.jit(_mt_jnp)(*map(jnp.asarray, (o, d, mint, cut, tri[:, 0:3],
                                                          tri[:, 3:6], tri[:, 6:9])))
     T = torch.from_numpy
-    before = dict(isect.LAUNCHES)
+    before = tracing.counters("launch.")
     ids, t, _, _ = isect.isect_brute(T(tri), *map(T, (o, d, mint, cut)))
-    assert isect.LAUNCHES == before
+    assert tracing.counters("launch.") == before
     j_id = np.asarray(j_idf).astype(np.int32)
     assert 0.2 < (j_id >= 0).mean()
     np.testing.assert_array_equal(ids.numpy(), j_id)
@@ -169,10 +170,10 @@ def test_isect_brute_refusals(case):
         cut = cut[:, None]
     elif case == "meta_device":
         tri, o, d, mint, cut = (x.to("meta") for x in (tri, o, d, mint, cut))
-    before = dict(isect.LAUNCHES)
+    before = tracing.counters("launch.")
     with pytest.raises(ValueError):
         isect.isect_brute(tri, o, d, mint, cut)
-    assert isect.LAUNCHES == before
+    assert tracing.counters("launch.") == before
     # the same inputs, corrected, run the plain version
     ids, t, u, v = isect.isect_brute(*_ok_inputs())
     assert ids.dtype == torch.int32 and t.shape == u.shape == v.shape == (16,)

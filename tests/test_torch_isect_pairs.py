@@ -29,6 +29,7 @@ from optix_renderer_tpu_torch.ops import bvh
 from optix_renderer_tpu_torch.ops.cuda import isect
 from optix_renderer_tpu_torch.scene import presets
 from optix_renderer_tpu_torch.scene.data import Bvh, scene_from_numpy
+from optix_renderer_tpu_torch.utils import tracing
 
 T = torch.from_numpy
 
@@ -257,12 +258,12 @@ def test_isect_bvh_on_cpu_runs_the_plain_version(mesh, any_hit):
         cut = rng.uniform(0.2, 2.0, 1000).astype(np.float32)
     rays = tuple(map(T, (o, d, mint, cut)))
     tables = Bvh(packed=T(packed), leaf=T(leaf), pairs=T(bvh.pack_child_pairs(packed)))
-    before = dict(isect.LAUNCHES)
+    before = tracing.counters("launch.")
     got = isect.isect_bvh(tables, *rays, any_hit=any_hit, with_visits=True)
     ref = bvh.traverse_pairs_ref(T(pairs), T(leaf), *rays, any_hit=any_hit, with_visits=True)
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
-    assert isect.LAUNCHES == before
+    assert tracing.counters("launch.") == before
 
 
 def test_scene_builders_carry_the_pair_table():

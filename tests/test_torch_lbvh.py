@@ -43,6 +43,7 @@ from optix_renderer_tpu_torch.ops.cuda import lbvh as cuda_lbvh
 from optix_renderer_tpu_torch.ops.cuda import pathk
 from optix_renderer_tpu_torch.scene import build, presets
 from optix_renderer_tpu_torch.scene.data import PhotonMap, _Tables, host_snapshot, scene_from_numpy
+from optix_renderer_tpu_torch.utils import tracing
 
 CSRC = Path(bvh.__file__).resolve().parents[1] / "csrc" / "lbvh.cu"
 LEAF = bvh.LEAF_SIZE
@@ -250,12 +251,12 @@ def test_kernel_bodies_match_numpy_sphere_builder(host_chain, n):
 
 def test_cuda_wrapper_refuses_cpu_tensors():
     v = torch.zeros((8, 3))
-    before = dict(cuda_lbvh.LAUNCHES)
+    before = tracing.counters("launch.")
     with pytest.raises(ValueError, match="cuda tensors"):
         cuda_lbvh.lbvh_build(v, v, v)
     with pytest.raises(ValueError, match="cuda tensors"):
         cuda_lbvh.lbvh_build(v, v, v, torch.ones(8))
-    assert cuda_lbvh.LAUNCHES == before
+    assert tracing.counters("launch.") == before
 
 
 def test_loaders_default_to_cuda_and_raise_without_gpu(tmp_path, monkeypatch):

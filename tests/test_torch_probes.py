@@ -20,12 +20,13 @@ torch.set_num_threads(1)  # xdist workers share the cores: one intra-op thread e
 
 from optix_renderer_tpu.ops.pallas import pathk as jpathk
 from optix_renderer_tpu_torch.tools import probe_copy, prof_parts
+from optix_renderer_tpu_torch.utils import tracing
 
 
 def test_probe_copy_plain_matches_probe_reference():
     x, sel = probe_copy.make_inputs()
     out = probe_copy.probe_copy(x, sel).numpy()
-    assert out.shape == (8, 1024) and probe_copy.LAUNCHES == 0
+    assert out.shape == (8, 1024) and tracing.counter("launch.probe_copy") == 0
     xn, seln = x.numpy(), sel.numpy()
     np.testing.assert_array_equal(seln, np.arange(16)[::-1])
     ref = np.zeros(1024, np.float32)
@@ -91,7 +92,7 @@ def test_iter_cost_loops_match_numpy():
         np.testing.assert_allclose(got.reshape(8, 2, 4096),
                                    np.broadcast_to(acc, (8, 2, 4096)), rtol=1e-6, atol=0,
                                    err_msg=mode)
-    assert prof_parts.LAUNCHES == 0
+    assert tracing.counter("launch.iter_cost") == 0
 
 
 def test_probe_wrappers_refuse_other_devices_and_entry_points_need_a_gpu(monkeypatch):
