@@ -3,8 +3,9 @@ the trace reading unmoved by the program's annotations.
 
     python -m pytest benchmarks/tests/test_bench_spans.py [-m card]
 
-The card test holds the device counter (`csrc/count.cu`) against torch's
-sum and reads the span tree of a small scan render on the card."""
+The card test holds the device counter (an int32 buffer per mask shape,
+summed at the fold) against torch's sum and reads the span tree of a small
+scan render on the card."""
 
 import copy
 from types import SimpleNamespace

@@ -23,8 +23,7 @@ from optix_renderer_tpu_torch.utils import tracing
 PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("mega.cuh", "walk.cuh", "pathk.cu", "isect.cu", "probes.cu", "track.cu", "lbvh.cu",
-           "count.cu")
+SOURCES = ("mega.cuh", "walk.cuh", "pathk.cu", "isect.cu", "probes.cu", "track.cu", "lbvh.cu")
 UNITS = tuple(name for name in SOURCES if name.endswith(".cu"))
 # no --use_fast_math: the samplers go through logf/sinf/cosf and must keep
 # full-precision results to track the plain version per pixel.
@@ -192,8 +191,6 @@ def load() -> ctypes.CDLL:
             vp,  # stream
         ]
         lib.lbvh_pairs_launch.restype = i
-        lib.count_true_launch.argtypes = [vp, ll, vp, vp]  # bool mask, n, int64 acc, stream
-        lib.count_true_launch.restype = i
         lib.pathk_error_string.argtypes = [i]
         lib.pathk_error_string.restype = ctypes.c_char_p
         _lib = lib

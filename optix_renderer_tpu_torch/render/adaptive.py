@@ -29,6 +29,7 @@ from optix_renderer_tpu_torch.render.render import (
 )
 from optix_renderer_tpu_torch.render.variance import variance_from_image
 from optix_renderer_tpu_torch.scene.data import RenderConfig, SceneData
+from optix_renderer_tpu_torch.utils import tracing
 
 
 def _draw_pixels(variance: torch.Tensor, round_idx: int, n: int, seed: int = 0) -> torch.Tensor:
@@ -42,19 +43,21 @@ def _draw_pixels(variance: torch.Tensor, round_idx: int, n: int, seed: int = 0) 
     return dpdf.sample(d, u)
 
 
+@tracing.traced("render")
 def render_adaptive(scene: SceneData, config: RenderConfig, sample_count: int | None = None,
                     verbose: bool = False, device="cuda") -> dict:
     """Adaptive render → numpy layers composite / albedo / normal / weights,
     the normalized `variance` map [H,W] and `samples_placed`."""
-    device = resolve_device(device)
-    scene = preprocess(scene, config, device).to(device)
-    spp = sample_count if sample_count is not None else config.sample_count
-    w, h = config.width, config.height
-    n_pix = w * h
-    chunk = min(MAX_LANES, n_pix)
-    all_ids = torch.arange(n_pix, dtype=torch.int64, device=device)
+    with tracing.span("render.dispatch"):
+        device = resolve_device(device)
+        scene = preprocess(scene, config, device).to(device)
+        spp = sample_count if sample_count is not None else config.sample_count
+        w, h = config.width, config.height
+        n_pix = w * h
+        chunk = min(MAX_LANES, n_pix)
+        all_ids = torch.arange(n_pix, dtype=torch.int64, device=device)
 
-    acc = torch.zeros((3, h, w, 4), dtype=torch.float32, device=device)
+        acc = torch.zeros((3, h, w, 4), dtype=torch.float32, device=device)
     # convergence state as adaptive.cpp:70-90: the old map starts at zero and
     # the norm guard high but finite, so the stop is armed from the second
     # adaptive round
@@ -87,12 +90,15 @@ def render_adaptive(scene: SceneData, config: RenderConfig, sample_count: int | 
         if verbose:
             print(f"  adaptive round {r + 1}/{spp}")
 
-    layers = film_mod.to_bitmap(acc).cpu().numpy()
-    return {
-        "composite": layers[0],
-        "albedo": layers[1],
-        "normal": layers[2],
-        "weights": acc[0, ..., 3].cpu().numpy(),
-        "variance": variance_from_image(acc[0]).cpu().numpy(),
-        "samples_placed": samples_placed,
-    }
+    with tracing.span("render.readout"):
+        layers = film_mod.to_bitmap(acc).cpu().numpy()
+        out = {
+            "composite": layers[0],
+            "albedo": layers[1],
+            "normal": layers[2],
+            "weights": acc[0, ..., 3].cpu().numpy(),
+            "variance": variance_from_image(acc[0]).cpu().numpy(),
+            "samples_placed": samples_placed,
+        }
+        tracing.fold_device()  # the copies have waited for the device
+    return out

@@ -46,6 +46,7 @@ from optix_renderer_tpu_torch.render.render import (
 )
 from optix_renderer_tpu_torch.scene.data import RenderConfig, SceneData
 from optix_renderer_tpu_torch.utils import imageio as iio
+from optix_renderer_tpu_torch.utils import tracing
 
 _PAGE = """<!doctype html>
 <html><head><title>optix_renderer_tpu_torch live view</title><style>
@@ -199,9 +200,11 @@ class LiveRenderer:
             self.scene = set_(self.scene, table)
             applied = True
 
+    @tracing.traced("render")
     def run(self) -> dict:
         """The render loop (renderThreadMain analog). Returns the final
-        layers as `render()` does, with `spp_done`."""
+        layers as `render()` does, with `spp_done`; one request of the
+        tracer, its rounds' spans under one `render` root."""
         config, dev = self.config, self.device
         self.scene = preprocess(self.scene, config, dev).to(dev)
         step = scan_step(self.scene, config, dev)

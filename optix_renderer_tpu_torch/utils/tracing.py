@@ -20,15 +20,15 @@ marks work done once per scene or process (`scene.load`, `kernels.load`).
 
 Counters: `count(name, n)` adds to a host integer, always (`launch.<kernel>`:
 one where the kernel launches, nowhere else). `count_device(name, mask)`
-adds the number of true entries of a bool tensor, only while the request is
-traced; on a card it adds into a device int64 scalar with one kernel launch
-and no wait, and `fold_device()`, called after the film readout's
-synchronise, moves those sums into the host counters.
+adds a bool tensor's true entries, only while the request is traced: one
+elementwise add into an int32 buffer of the mask's shape, on the mask's
+device and with no wait. `fold_device()`, called once the film readout has
+waited for the device, sums those buffers into the host counters; until then
+`counter()` does not see them.
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import itertools
 import threading
@@ -64,7 +64,7 @@ class _Thread(threading.local):
         self.stack = []  # ids of this thread's open, recorded spans
         self.request = 0  # the open request's id, 0 when none is open
         self.on = False  # whether the open request is recorded
-        self.device = {}  # (counter name, device) -> _DeviceCount
+        self.device = {}  # (counter name, device, mask shape) -> _DeviceCount
 
 
 _t = _Thread()
@@ -129,8 +129,6 @@ class _Span:
             t.stack.pop()
             _store(Record(self.request, self.id, self.parent, self.name, self.start, end,
                           self.attrs))
-        if not self.saved[0] and any(dc.pending for dc in t.device.values()):
-            fold_device()  # a request that read no film: fold its device counts here
         t.request, t.on = self.saved
         return False
 
@@ -243,51 +241,42 @@ def reset_counters(prefix: str = "") -> None:
 
 
 class _DeviceCount:
-    """One counter's device int64 scalar on one device, and how much of it
-    the host counter holds."""
+    """One counter's int32 buffer for masks of one shape on one device: each
+    entry counts the calls in which that mask entry was true. `folded` is the
+    part of its sum that the host counter holds."""
 
-    __slots__ = ("acc", "folded", "pending")
+    __slots__ = ("buf", "folded", "pending")
 
-    def __init__(self, device):
-        self.acc = torch.zeros(1, dtype=torch.int64).to(device)  # a copy: no fill kernel
-        self.folded, self.pending = 0, False
+    def __init__(self, mask: torch.Tensor):
+        self.buf = mask.to(torch.int32)  # the first call's add: one launch, as every later one
+        self.folded, self.pending = 0, True
 
 
 def count_device(name: str, mask: torch.Tensor) -> None:
     """Add the number of true entries of the bool tensor `mask` to the
-    counter `name`, if this thread's request is traced. A CPU tensor adds at
-    once; a CUDA tensor adds into a device int64 scalar by one launch of
-    `csrc/count.cu`, read at the next `fold_device()`."""
+    counter `name`, if this thread's request is traced: one elementwise
+    kernel on the mask's device and no wait, read at the next
+    `fold_device()`."""
     t = _t
     if not t.on:
         return
     if mask.dtype != torch.bool:
         raise ValueError(f"count_device counts a bool tensor, got {mask.dtype}")
-    if not mask.is_cuda:
-        count(name, int(mask.sum()))
-        return
-    from optix_renderer_tpu_torch.ops.cuda import _build
-
-    mask = mask.contiguous()
-    dc = t.device.get((name, mask.device))
+    key = (name, mask.device, mask.shape)
+    dc = t.device.get(key)
     if dc is None:
-        dc = t.device[(name, mask.device)] = _DeviceCount(mask.device)
-    with torch.cuda.device(mask.device):
-        stream = torch.cuda.current_stream(mask.device).cuda_stream
-        rc = _build.load().count_true_launch(
-            ctypes.c_void_p(mask.data_ptr()), mask.numel(), ctypes.c_void_p(dc.acc.data_ptr()),
-            ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"count_true kernel launch failed: cudaError {rc} "
-                           f"({_build.error_string(rc)})")
-    dc.pending = True
+        t.device[key] = _DeviceCount(mask)
+    else:
+        dc.buf.add_(mask)
+        dc.pending = True
 
 
 def fold_device() -> None:
-    """Move this thread's device counts into the host counters: one copy of
-    each scalar, cheap once the device has been synchronized."""
-    for (name, _), dc in _t.device.items():
+    """Move this thread's device counts into the host counters: one sum and
+    copy of each buffer added to since the last fold, cheap once the device
+    has been synchronized."""
+    for (name, *_), dc in _t.device.items():
         if dc.pending:
-            value = int(dc.acc.item())
+            value = int(dc.buf.sum())
             count(name, value - dc.folded)
             dc.folded, dc.pending = value, False

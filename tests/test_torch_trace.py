@@ -1,10 +1,11 @@
 """The port's tracer (`utils/tracing.py`): spans, the switch, self time, the
 thread-local stack, the cap, counters, and the span tree of small CPU
-renders on the path kernel's plain version and on the scan path.
+renders on the path kernel's plain version, on the scan path and in
+adaptive sampling.
 
-The device counter's kernel (`csrc/count.cu`) runs only on a card:
+The device counter runs the same torch code on the CPU as on a card;
 `benchmarks/tests/test_bench_spans.py -m card` holds it against torch's sum
-there."""
+on the card too."""
 
 import ctypes
 import dataclasses
@@ -18,6 +19,7 @@ torch.set_num_threads(1)  # xdist workers share the cores: one intra-op thread e
 
 from optix_renderer_tpu_torch import cli
 from optix_renderer_tpu_torch.ops.cuda import _build
+from optix_renderer_tpu_torch.render.adaptive import render_adaptive
 from optix_renderer_tpu_torch.render.render import render
 from optix_renderer_tpu_torch.scene.presets import cornell_box_xml, make_cornell_box
 from optix_renderer_tpu_torch.utils import tracing
@@ -199,6 +201,24 @@ def test_host_counters_add_and_reset():
             tracing.count_device("scan.lanes_live", torch.ones(3))
 
 
+def test_device_counts_wait_for_the_fold_and_keep_one_buffer_per_shape():
+    g = torch.Generator().manual_seed(3)
+    masks = [torch.rand(n, generator=g) < p for n, p in ((7, 0.5), (7, 0.9), (40, 0.3), (7, 1.0))]
+    before = tracing.counter("test.live")
+    tracing.enable()
+    with tracing.span("render"):
+        for m in masks:
+            tracing.count_device("test.live", m)
+    assert tracing.counter("test.live") == before  # the root's exit does not fold
+    tracing.fold_device()
+    assert tracing.counter("test.live") - before == sum(int(m.sum()) for m in masks)
+    tracing.fold_device()  # nothing added since: nothing moves
+    assert tracing.counter("test.live") - before == sum(int(m.sum()) for m in masks)
+    bufs = {k[2]: dc.buf for k, dc in tracing._t.device.items() if k[0] == "test.live"}
+    assert set(bufs) == {torch.Size([7]), torch.Size([40])}
+    assert torch.equal(bufs[torch.Size([7])], sum(m.int() for m in masks if m.numel() == 7))
+
+
 def test_kernels_load_is_a_setup_span_of_the_first_load(monkeypatch, tmp_path):
     class FakeLib:
         def __getattr__(self, name):
@@ -284,3 +304,27 @@ def test_cli_trace_out_writes_the_spans_beside_the_ops(tmp_path):
     assert {"scene.load", "render", "render.dispatch", "render.step",
             "render.readout", "readout.wait"} <= names
     assert any(e.get("cat") == "cpu_op" for e in events)
+
+
+def test_adaptive_sampling_is_one_request_under_a_render_root(small_box, monkeypatch):
+    scene, cfg = small_box
+    seen = []
+    real = tracing.count_device
+
+    def spy(name, mask):
+        seen.append(int(mask.sum()))
+        real(name, mask)
+
+    monkeypatch.setattr(tracing, "count_device", spy)
+    before = tracing.counter("scan.lanes_live")
+    tracing.enable()
+    render_adaptive(scene, dataclasses.replace(cfg, adaptive_uniform_rounds=1), sample_count=2,
+                    device="cpu")
+    recs = tracing.records()
+    assert len({r.request for r in recs}) == 1
+    (root,) = [r for r in recs if r.parent == 0]
+    assert root.name == "render"
+    edges = set(_tree(recs).values())
+    assert {("render.dispatch", "render"), ("scan.round", "render"),
+            ("render.readout", "render")} <= edges
+    assert len(seen) == 8 and tracing.counter("scan.lanes_live") - before == sum(seen)
