@@ -1432,6 +1432,20 @@ def _splatted(fn) -> tuple:
     return out, (torch.cat([p for p, _ in kept]), torch.cat([v for _, v in kept], dim=1))
 
 
+@contextlib.contextmanager
+def _eager_scan():
+    """Within it, `render.scan_step` runs every round eagerly, as it does
+    for an integrator outside `scan_graph.GRAPH_INTEGRATORS`."""
+    from optix_renderer_tpu_torch.render import scan_graph
+
+    saved = scan_graph.GRAPH_INTEGRATORS
+    scan_graph.GRAPH_INTEGRATORS = frozenset()
+    try:
+        yield
+    finally:
+        scan_graph.GRAPH_INTEGRATORS = saved
+
+
 def _same_paths(a: tuple, b: tuple) -> bool:
     """Whether two `_splatted` records hold the same samples: positions and
     layers bit for bit, each set sorted by its position's bits (every
@@ -1478,8 +1492,9 @@ def wavefront(dev, smi: str, reset_counts, read_counts) -> dict:
         else:
             scene, cfg, _ = make_cornell_box(800, 600, spp, integ, device=dev)
         cfg = dataclasses.replace(cfg, max_depth=depth, rfilter="box")
-        scan, scan_paths = _splatted(
-            lambda: render(scene, cfg, sample_count=spp, device=dev, mega=False))
+        with _eager_scan():  # a replayed round calls no `film.splat_`
+            scan, scan_paths = _splatted(
+                lambda: render(scene, cfg, sample_count=spp, device=dev, mega=False))
         reset_counts()
         (wave, it), wave_paths = _splatted(lambda: _counted_wavefront(scene, cfg, spp, dev))
         n = read_counts()

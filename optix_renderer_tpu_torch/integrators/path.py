@@ -48,9 +48,7 @@ def li_path_mats(scene: SceneData, config: RenderConfig, ray: Ray, sampler):
     s = sampler
     for bounce in range(config.max_depth):
         with tracing.span("scan.bounce", bounce=bounce):
-            if tracing.recording():  # the lanes entering the bounce, and those alive
-                tracing.count("scan.lanes", n)
-                tracing.count_device("scan.lanes_live", active)
+            tracing.count_lanes(active)  # the lanes entering the bounce, and those alive
             with tracing.span("scan.intersect"):
                 ctx = common.trace(scene, _segment(ray, ro, rd, bounce))
             hit = ctx.its.valid & active
@@ -103,9 +101,7 @@ def li_path_mis(scene: SceneData, config: RenderConfig, ray: Ray, sampler):
     s = sampler
     for bounce in range(config.max_depth):
         with tracing.span("scan.bounce", bounce=bounce):
-            if tracing.recording():  # the lanes entering the bounce, and those alive
-                tracing.count("scan.lanes", n)
-                tracing.count_device("scan.lanes_live", active)
+            tracing.count_lanes(active)  # the lanes entering the bounce, and those alive
             with tracing.span("scan.intersect"):
                 ctx = common.trace(scene, _segment(ray, ro, rd, bounce))
             first = bounce == 0

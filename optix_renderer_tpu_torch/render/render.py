@@ -11,7 +11,10 @@ one sample loop drives either. The scan path renders one sample round at a
 time over chunks of up to `MAX_LANES` pixels: camera rays, the
 integrator's bounce loop (`integrators/`), whose intersections launch the
 kernels of `csrc/isect.cu` on a CUDA device and run their plain torch
-versions on the CPU, and the filter splat (`render/film.py`). A CUDA device without a GPU raises; nothing falls back.
+versions on the CPU, and the filter splat (`render/film.py`); on a CUDA
+device the path integrators' round is captured once as a CUDA graph and
+replayed (`render/scan_graph.py`). A CUDA device without a GPU raises;
+nothing falls back.
 
 Layer order matches ERenderLayer (integrator.h:29-39):
 0 = composite, 1 = albedo, 2 = normal.
@@ -30,6 +33,7 @@ from optix_renderer_tpu_torch.integrators import get_integrator
 from optix_renderer_tpu_torch.ops import camera as camera_ops
 from optix_renderer_tpu_torch.render import film
 from optix_renderer_tpu_torch.render import sampler as smp
+from optix_renderer_tpu_torch.render import scan_graph
 from optix_renderer_tpu_torch.scene.data import RenderConfig, SceneData
 from optix_renderer_tpu_torch.utils import tracing
 from optix_renderer_tpu_torch.utils.device import resolve_device
@@ -120,19 +124,22 @@ def _layers_out(acc) -> dict[str, np.ndarray]:
     }
 
 
-def _round_layers(scene: SceneData, config: RenderConfig, pixel_ids, sample_idx):
+def _round_layers(scene: SceneData, config: RenderConfig, pixel_ids, sample_idx, s2c=None):
     """One sample for a chunk of pixels → (pos [N,2], layers [3,N,3])
     (renderBlock, render.cpp:421-459: per-pixel jitter, camera ray, Li).
-    `sample_idx` is an int, or an [N] integer tensor of per-lane sample
-    indices (the adaptive sampler's virtual indices); either is taken
-    modulo 2^32, as the JAX package's uint32 cast takes its int32."""
+    `sample_idx` is an int, or an integer tensor of per-lane sample indices
+    ([N]: the adaptive sampler's virtual indices; []: the captured round's
+    scalar, `render/scan_graph.py`); either is taken modulo 2^32, as the
+    JAX package's uint32 cast takes its int32. `s2c`: the camera's
+    `sample_to_camera_matrix` on the pixels' device, made here when None."""
     px = (pixel_ids % config.width).to(torch.float32)
     py = (pixel_ids // config.width).to(torch.float32)
     s = smp.make_sampler(pixel_ids, sample_idx, seed=config.seed)
     s, jitter = smp.next_2d(s)
     s, aperture = smp.next_2d(s)
     pos = torch.stack([px, py], dim=-1) + jitter
-    ray, _ = camera_ops.sample_ray(scene.camera, config.width, config.height, pos, aperture)
+    ray, _ = camera_ops.sample_ray(scene.camera, config.width, config.height, pos, aperture,
+                                   s2c=s2c)
     L, albedo, normal, _ = get_integrator(config.integrator)(scene, config, ray, s)
     # a dead lane's NaN / Inf must not poison the film
     L = torch.nan_to_num(L, nan=0.0, posinf=0.0, neginf=0.0)
@@ -150,11 +157,11 @@ def render_round(scene: SceneData, config: RenderConfig, pixel_ids, sample_idx) 
 
 @tracing.traced("scan.round")
 def render_round_accumulate(acc, scene: SceneData, config: RenderConfig, pixel_ids,
-                            sample_idx) -> None:
+                            sample_idx, s2c=None) -> None:
     """One sample round for `pixel_ids` [N] int64 (negative ids are padding
     lanes, outside the image), splatted into `acc` [3,H,W,4] in place;
-    `sample_idx` as in `_round_layers`."""
-    pos, layers = _round_layers(scene, config, pixel_ids, sample_idx)
+    `sample_idx` and `s2c` as in `_round_layers`."""
+    pos, layers = _round_layers(scene, config, pixel_ids, sample_idx, s2c)
     with tracing.span("scan.splat"):
         film.splat_(acc, config.rfilter, pos, layers)
 
@@ -162,7 +169,10 @@ def render_round_accumulate(acc, scene: SceneData, config: RenderConfig, pixel_i
 def scan_step(scene: SceneData, config: RenderConfig, device: torch.device):
     """The scan path (render.py:246-302 of the JAX package) →
     `step(acc, spp0, n_spp)`, which renders sample rounds spp0 …
-    spp0 + n_spp − 1, each over chunks of up to `MAX_LANES` pixels."""
+    spp0 + n_spp − 1, each over chunks of up to `MAX_LANES` pixels: on a
+    CUDA device, for `scan_graph.GRAPH_INTEGRATORS` on a scene without
+    gradients, by replaying the round captured as a CUDA graph
+    (`render/scan_graph.py`), else eagerly."""
     get_integrator(config.integrator)  # an integrator not ported yet raises here
     scene = scene.to(device)
     w, h = config.width, config.height
@@ -174,11 +184,19 @@ def scan_step(scene: SceneData, config: RenderConfig, device: torch.device):
     ids = torch.cat([torch.arange(n_pix, dtype=torch.int64),
                      torch.full((pad,), -max(w, h) * 4, dtype=torch.int64)]).to(device)
 
+    def rounds(acc, sample_idx, cfg: RenderConfig, s2c=None) -> None:
+        """One sample round, every chunk of it."""
+        for c in range(n_chunks):
+            render_round_accumulate(acc, scene, cfg, ids[c * chunk:(c + 1) * chunk], sample_idx,
+                                    s2c)
+
+    if scan_graph.graphable(scene, config, ids.device):
+        return scan_graph.graph_step(scene, config, ids, rounds)
+
     def step(acc, spp0: int, n_spp: int) -> None:
         for s_idx in range(spp0, spp0 + n_spp):
-            for c in range(n_chunks):
-                render_round_accumulate(acc, scene, config, ids[c * chunk:(c + 1) * chunk],
-                                        s_idx)
+            scan_graph.count_round(graphed=False)
+            rounds(acc, s_idx, config)
 
     return step
 

@@ -20,15 +20,24 @@ marks work done once per scene or process (`scene.load`, `kernels.load`).
 
 Counters: `count(name, n)` adds to a host integer, always (`launch.<kernel>`:
 one where the kernel launches, nowhere else). `count_device(name, mask)`
-adds a bool tensor's true entries, only while the request is traced: one
-elementwise add into an int32 buffer of the mask's shape, on the mask's
-device and with no wait. `fold_device()`, called once the film readout has
-waited for the device, sums those buffers into the host counters; until then
-`counter()` does not see them.
+adds a bool tensor's true entries (or an int32 tensor's counts), only while
+the request is traced: one elementwise add into an int32 buffer of the
+mask's shape, on the mask's device and with no wait. `fold_device()`, called
+once the film readout has waited for the device, sums those buffers into the
+host counters; until then `counter()` does not see them. `count_lanes(active)`
+counts a scan-path bounce's lanes (`scan.lanes`) and live lanes
+(`scan.lanes_live`) so.
+
+A CUDA graph's capture (`with capturing(cap)`) runs no kernel, so what it
+counts is kept in its `Capture` and counted again by `replayed(cap)` at each
+replay: the host counts made while capturing (the kernels' launches), and
+the live lanes, which the captured body casts into int32 buffers of the
+graph's own, one per bounce, at every replay, traced or not.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import itertools
 import threading
@@ -65,6 +74,7 @@ class _Thread(threading.local):
         self.request = 0  # the open request's id, 0 when none is open
         self.on = False  # whether the open request is recorded
         self.device = {}  # (counter name, device, mask shape) -> _DeviceCount
+        self.capture = None  # the Capture of the graph this thread captures, if any
 
 
 _t = _Thread()
@@ -217,7 +227,12 @@ def self_ns(recs) -> dict[int, int]:
 
 
 def count(name: str, n: int = 1) -> None:
-    """Add `n` to the host counter `name`."""
+    """Add `n` to the host counter `name` (while this thread captures a
+    graph, to its `Capture`, counted at each replay)."""
+    cap = _t.capture
+    if cap is not None:
+        cap.counts[name] = cap.counts.get(name, 0) + n
+        return
     with _lock:
         _counts[name] = _counts.get(name, 0) + n
 
@@ -248,20 +263,22 @@ class _DeviceCount:
     __slots__ = ("buf", "folded", "pending")
 
     def __init__(self, mask: torch.Tensor):
-        self.buf = mask.to(torch.int32)  # the first call's add: one launch, as every later one
+        # the first call's add: one launch, as every later one; a copy even
+        # of an int32 tensor, whose owner may write it again
+        self.buf = mask.to(torch.int32, copy=True)
         self.folded, self.pending = 0, True
 
 
 def count_device(name: str, mask: torch.Tensor) -> None:
-    """Add the number of true entries of the bool tensor `mask` to the
-    counter `name`, if this thread's request is traced: one elementwise
-    kernel on the mask's device and no wait, read at the next
-    `fold_device()`."""
+    """Add the number of true entries of the bool tensor `mask` (or the sum
+    of the int32 tensor of counts `mask`) to the counter `name`, if this
+    thread's request is traced: one elementwise kernel on the mask's device
+    and no wait, read at the next `fold_device()`."""
     t = _t
     if not t.on:
         return
-    if mask.dtype != torch.bool:
-        raise ValueError(f"count_device counts a bool tensor, got {mask.dtype}")
+    if mask.dtype not in (torch.bool, torch.int32):
+        raise ValueError(f"count_device counts a bool or int32 tensor, got {mask.dtype}")
     key = (name, mask.device, mask.shape)
     dc = t.device.get(key)
     if dc is None:
@@ -280,3 +297,50 @@ def fold_device() -> None:
             value = int(dc.buf.sum())
             count(name, value - dc.folded)
             dc.folded, dc.pending = value, False
+
+
+def count_lanes(active: torch.Tensor) -> None:
+    """Count a scan-path bounce's lanes, `active` [N] bool: N into
+    `scan.lanes` and the true entries into `scan.lanes_live` in a traced
+    request; while a graph is captured, always into its `Capture`."""
+    cap = _t.capture
+    if cap is not None:
+        cap.lanes.append(active.to(torch.int32))  # the graph's own, written by each replay
+        cap.n_lanes += active.shape[0]
+    elif _t.on:
+        count("scan.lanes", active.shape[0])
+        count_device("scan.lanes_live", active)
+
+
+class Capture:
+    """What the body of one CUDA graph counted while it was captured."""
+
+    __slots__ = ("counts", "lanes", "n_lanes")
+
+    def __init__(self):
+        self.counts = {}  # host counts (launch.<kernel>: the graph's launches)
+        self.lanes = []  # int32 [N] per bounce counted: its live lanes in the last replay
+        self.n_lanes = 0  # the lanes those bounces counted, per replay
+
+
+@contextlib.contextmanager
+def capturing(cap: Capture):
+    """Within it, this thread's counts go to `cap` (see `Capture`)."""
+    saved, _t.capture = _t.capture, cap
+    try:
+        yield cap
+    finally:
+        _t.capture = saved
+
+
+def replayed(cap: Capture) -> None:
+    """Count one replay of the graph whose capture is `cap`: its host counts
+    always; in a traced request its lanes, each bounce's live lanes by one
+    `count_device`, as the eager bounce counts them (enqueued after the
+    replay, so that each add reads what the replay wrote)."""
+    for name, n in cap.counts.items():
+        count(name, n)
+    if _t.on and cap.lanes:
+        count("scan.lanes", cap.n_lanes)
+        for buf in cap.lanes:
+            count_device("scan.lanes_live", buf)
