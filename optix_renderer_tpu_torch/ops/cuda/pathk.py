@@ -222,6 +222,7 @@ def build_pathk_tables(scene, config, device="cpu"):
     return tables, meta
 
 
+@tracing.traced("pack.walk_tables")
 def _walk_tables(g, rows):
     """(packed, leaf) of the medium branch: the scene's LBVH or one built
     from the rows' v0 | e1 | e2. Raises unless every leaf slot's v0 | e1 |
@@ -751,12 +752,25 @@ def pathk_trace(tables, meta, config, *, n_pix, spp0, n_spp, pix0=0):
     CPU tables run the plain version; CUDA tables launch a kernel of
     `csrc/pathk.cu` on the current stream (`pathk_kernel<MIS>` up to
     VPU_MAX_TRIS triangles, `pathk_staged_kernel<MIS>` above), or raise. Returns float32
-    [16, n_pix] on the tables' device.
+    [16, n_pix] on the tables' device. In a traced request it also counts
+    the pixels' loop iterations (row 10) into `pathk.iterations`, on the
+    device, and n_pix × n_spp into `pathk.samples`.
     """
     device = tables["em_rows"].device
     if device.type == "cpu":
-        return pathk_trace_ref(tables, meta, config, n_pix=n_pix, spp0=spp0, n_spp=n_spp,
-                               pix0=pix0)
+        out = pathk_trace_ref(tables, meta, config, n_pix=n_pix, spp0=spp0, n_spp=n_spp,
+                              pix0=pix0)
+    else:
+        out = _launch(tables, meta, config, n_pix, spp0, n_spp, pix0, device)
+    if tracing.recording():
+        # row 10 holds each pixel's loop iterations, exact in float32
+        tracing.count_device("pathk.iterations", out[10].to(torch.int32))
+        tracing.count("pathk.samples", n_pix * n_spp)
+    return out
+
+
+def _launch(tables, meta, config, n_pix, spp0, n_spp, pix0, device):
+    """One launch of a kernel of `csrc/pathk.cu` (see `pathk_trace`)."""
     if device.type != "cuda":
         raise ValueError(f"pathk_trace runs on cpu or cuda tensors, got {device}")
     _check_tables(tables, meta, device)
