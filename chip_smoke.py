@@ -40,8 +40,8 @@ Drives the port's main path (`optix_renderer_tpu_torch`, no JAX) once:
    counter;
 8. renders config A, the tessellated Cornell box at 800x600, path_mis,
    depth 8, gaussian filter, through `render()` (1-spp warm-up, then 4 spp
-   timed with the film on the host), counts the LBVH kernels' launches in
-   that run, renders bench.py's 400x300 config, prints ptxas' registers and
+   timed with the film on the host), counts the LBVH kernels' and the
+   shading kernel's launches in that run (depth x 4 shade, 4 fold), renders bench.py's 400x300 config, prints ptxas' registers and
    spills of both `bvh_kernel` instances, and times closest hit on phase 7's
    camera and bounce rays and any hit on its shadow rays (device time behind
    a spin, median of 7), beside the bound of the parent's skip-link walk on
@@ -258,7 +258,15 @@ Drives the port's main path (`optix_renderer_tpu_torch`, no JAX) once:
    `render()` made of a host-built config A and H, and renders config A at
    phase 8's settings from the card-built scene (launches equal to phase
    8's) against the host-built one (median statistic), load + render
-   timed in turns.
+   timed in turns;
+34. holds the scan path's shading kernel (`csrc/scan.cu: shade_kernel`,
+   through `integrators/path.py: li_path_fused`) against the torch chain
+   (`li_path_mis` / `li_path_mats`) on the 480,000 camera rays of config A
+   (depth 8) and config B (depth 16) at 800x600: L, albedo and normal
+   within 1e-4 x (|chain| + 1e-3) outside at most 0.1 % of lanes, and
+   after each bounce the pcg32 state of every live lane equal; times the
+   kernel (torch.profiler) and its plain version `shade_ref` (CUDA events)
+   per launch beside the kernel's bytes bound.
 
 Every scene a phase renders on the card is built there
 (`load_scene(..., device)`, the presets' `device=`).
@@ -334,6 +342,8 @@ LANE_BYTES = 12 + 12 + 4 + 4 + 32 + 4 + 4 + 16
 ISECT_KERNELS = ("isect_bvh_closest", "isect_bvh_any", "isect_brute", "isect_spheres_closest",
                  "isect_spheres_any")
 KERNELS = (*ISECT_KERNELS, "delta_track", "ratio_track", "pathk")
+# the scan path's shading kernel: a bounce's shade launch, the last fold
+SCAN_KERNELS = ("scan_shade", "scan_fold")
 
 
 _last_phase = [time.time()]
@@ -1434,8 +1444,10 @@ def _splatted(fn) -> tuple:
 
 @contextlib.contextmanager
 def _eager_scan():
-    """Within it, `render.scan_step` runs every round eagerly, as it does
-    for an integrator outside `scan_graph.GRAPH_INTEGRATORS`."""
+    """Within it, `render.scan_step` runs every round eagerly through the
+    torch chain, as it does for an integrator outside
+    `scan_graph.GRAPH_INTEGRATORS`: the wavefront's bounce
+    (`render/wavefront.py: _bounce`) is that chain's."""
     from optix_renderer_tpu_torch.render import scan_graph
 
     saved = scan_graph.GRAPH_INTEGRATORS
@@ -1864,6 +1876,117 @@ def lbvh(dev, smi: str, reset_counts, read_counts, launches_a: dict) -> dict:
     return rec
 
 
+# ---- phase 34: the scan path's shading kernel (csrc/scan.cu)
+
+SCAN_SOURCE = "optix_renderer_tpu_torch/csrc/scan.cu"
+# bytes one shade launch moves per lane under path_mis (csrc/scan.cu:
+# sc::Lanes): a live lane reads and writes its state once, ~240 B (ray,
+# throughput, L, MIS state, pcg32 words, shadow ray, pending term), and
+# reads its winner's triangle row, 72 B; a dead lane its two flags
+SHADE_LIVE_BYTES = 240 + 72
+SHADE_DEAD_BYTES = 2
+
+
+def scan_shading(dev, smi: str, scene_a, cfg_a, scene_b, cfg_b) -> dict:
+    """Phase 34: `shade_kernel` through `li_path_fused` against the torch
+    chain (`li_path_mis` / `li_path_mats`) on the 480,000 camera rays of
+    configs A and B; its time per launch beside its plain version's and,
+    under path_mis, its bytes bound; returns the phase's record."""
+    from optix_renderer_tpu_torch.integrators import path as path_int
+    from optix_renderer_tpu_torch.ops import camera as cam_ops
+    from optix_renderer_tpu_torch.ops.cuda import scan as scan_shade
+    from optix_renderer_tpu_torch.render import sampler as smp
+
+    def camera_rays(scene, cfg):
+        """The camera rays and samplers of `render._round_layers`, sample 3."""
+        ids = torch.arange(cfg.width * cfg.height, device=dev)
+        s = smp.make_sampler(ids, 3, seed=cfg.seed)
+        s, jitter = smp.next_2d(s)
+        s, aperture = smp.next_2d(s)
+        pos = torch.stack([(ids % cfg.width).float(), (ids // cfg.width).float()], -1) + jitter
+        ray, _ = cam_ops.sample_ray(scene.camera, cfg.width, cfg.height, pos, aperture)
+        return ray, s
+
+    rec = {}
+    for name, scene, cfg0 in (("config_a", scene_a, cfg_a), ("config_b", scene_b, cfg_b)):
+        for integ in ("path_mis", "path_mats"):
+            what = f"{name} {integ}"
+            cfg = dataclasses.replace(cfg0, integrator=integ, seed=2_900_000_017)
+            chain = path_int.li_path_mis if integ == "path_mis" else path_int.li_path_mats
+            sc = scan_shade.prepare(scene, cfg, dev)
+            if sc is None:
+                raise AssertionError(f"{what} did not take the shading kernel")
+            ray, s = camera_rays(scene, cfg)
+            states, live = [], []
+
+            def recorded(sc_, lanes, bounce, hits, occ, fold_only=False):
+                if not fold_only:
+                    live.append(int(lanes.active.sum()))
+                scan_shade.shade(sc_, lanes, bounce, hits, occ, fold_only)
+                if not fold_only:
+                    states.append((lanes.active.clone(), lanes.st_hi.clone(),
+                                   lanes.st_lo.clone()))
+
+            got = path_int.li_path_fused(scene, cfg, ray, s, sc, shade=recorded)
+            want = chain(scene, cfg, ray, s)
+            n = ray.o.shape[0]
+            row = {"lanes": n, "depth": cfg.max_depth, "live_per_bounce": live}
+            for layer, g, w in zip(("L", "albedo", "normal"), got[:3], want[:3]):
+                if not torch.isfinite(g).all():
+                    raise AssertionError(f"{what}: the kernel's {layer} is not finite")
+                off = ((g - w).abs() > 1e-4 * (w.abs() + 1e-3)).any(dim=1)
+                row[f"{layer}_lanes_off"] = int(off.sum())
+                row[f"{layer}_max_abs_err"] = float((g - w)[~off].abs().max())
+                if int(off.sum()) > n // 1000:
+                    raise AssertionError(f"{what}: {layer} off the chain's on {int(off.sum())} "
+                                         f"of {n} lanes, more than 0.1 %")
+            if not float(want[0].abs().sum()) > 0:
+                raise AssertionError(f"{what}: the chain's L is all zero")
+            for b, (active, hi, lo) in enumerate(states):
+                st = chain(scene, dataclasses.replace(cfg, max_depth=b + 1), ray, s)[3].state
+                bad = int((((hi != st.state_hi) | (lo != st.state_lo)) & active).sum())
+                if bad:
+                    raise AssertionError(f"{what}: after bounce {b} the pcg32 state of {bad} "
+                                         "live lanes differs from the chain's")
+            # the kernel alone per launch (folds included), and shade_ref per call
+            ev = kernel_events(lambda: path_int.li_path_fused(scene, cfg, ray, s, sc), reps=3)
+            k_ms = sum(v[0] for k, v in ev.items() if "shade_kernel" in k)
+            k_n = sum(v[1] for k, v in ev.items() if "shade_kernel" in k)
+            plain = []
+
+            def timed_ref(sc_, lanes, bounce, hits, occ, fold_only=False):
+                e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                e[0].record()
+                scan_shade.shade_ref(sc_, lanes, bounce, hits, occ, fold_only)
+                e[1].record()
+                plain.append(e)
+
+            path_int.li_path_fused(scene, cfg, ray, s, sc, shade=timed_ref)  # warm-up
+            plain.clear()
+            path_int.li_path_fused(scene, cfg, ray, s, sc, shade=timed_ref)
+            torch.cuda.synchronize()
+            row["ms"] = k_ms / k_n if k_n else "not measured"
+            row["ms_per_render"] = k_ms if k_n else "not measured"
+            row["launches_per_render"] = round(k_n)
+            row["plain_ms"] = sum(a.elapsed_time(b) for a, b in plain) / len(plain)
+            if integ == "path_mis":  # the fold's launch moves the pending terms alone
+                nbytes = sum(k * SHADE_LIVE_BYTES + (n - k) * SHADE_DEAD_BYTES for k in live)
+                row["bound"] = bound(0, nbytes / (len(live) + 1))
+                row["bytes_per_render"] = nbytes
+            rec[f"{name}_{integ}"] = row
+            ms = row["ms"] if isinstance(row["ms"], str) else f"{row['ms']:.4f} ms"
+            print(f"  {what} at {cfg.width}x{cfg.height}, depth {cfg.max_depth}: lanes off "
+                  f"L {row['L_lanes_off']}, albedo {row['albedo_lanes_off']}, normal "
+                  f"{row['normal_lanes_off']} of {n}, max |err| of L {row['L_max_abs_err']:.3e}; "
+                  f"live lanes per bounce {live}; shade_kernel {ms} a launch "
+                  f"({row['launches_per_render']} a render), shade_ref {row['plain_ms']:.3f} ms"
+                  + (f", bound {row['bound'][0]:.4f} ms" if "bound" in row else "")
+                  + f" on {smi}")
+    phase(34, "the shading kernel equals the torch chain on configs A and B at 800x600 "
+              f"(config A path_mis: {rec['config_a_path_mis']['ms']} ms a launch)")
+    return rec
+
+
 def main() -> None:
     # ---- 1. the card
     if not torch.cuda.is_available():
@@ -2134,17 +2257,23 @@ def main() -> None:
     # ---- 8. config A through render(): the LBVH kernels on the main path
     render(scene_a, cfg_a, sample_count=1, device=dev)  # warm-up
     tracing.reset_counters("launch.isect_")
+    tracing.reset_counters("launch.scan_")
     torch.cuda.synchronize()
     t0 = time.time()
     out_a = render(scene_a, cfg_a, sample_count=4, device=dev)  # returns host numpy
     dt_a = time.time() - t0
     launches_a = launches_of(ISECT_KERNELS)
+    shade_launches_a = launches_of(SCAN_KERNELS)
     comp = out_a["composite"]
     print(f"  config A 800x600 path_mis depth 8 gaussian, 4 spp: {dt_a:.4f} s, "
           f"{800 * 600 * 4 / dt_a / 1e6:.4f} Mpaths/s on {smi}; launches {launches_a}; "
           f"film mean {comp.mean():.5f}")
     if not (launches_a["isect_bvh_closest"] > 0 and launches_a["isect_bvh_any"] > 0):
         raise AssertionError(f"config A launched an LBVH kernel no time: {launches_a}")
+    print(f"  config A shading kernel launches: {shade_launches_a}")
+    if shade_launches_a != {"scan_shade": 4 * cfg_a.max_depth, "scan_fold": 4}:
+        raise AssertionError(f"config A's 4 spp at depth {cfg_a.max_depth} did not take the "
+                             f"shading kernel once a bounce: {shade_launches_a}")
     if not (np.isfinite(comp).all() and comp.shape == (600, 800, 3) and comp.mean() > 0):
         raise AssertionError("config A film is not finite / positive")
     scene_q, cfg_q, _ = make_tessellated_cornell(400, 300, 1, "path_mis", device=dev)
@@ -3299,6 +3428,8 @@ def main() -> None:
     sph = spheres(dev, smi, reset_counts, read_counts)
     wave = wavefront(dev, smi, reset_counts, read_counts)
     lb = lbvh(dev, smi, reset_counts, read_counts, launches_a)
+    shd = scan_shading(dev, smi, scene_a, cfg_a, scene_b, cfg_b)
+    shd_a = shd["config_a_path_mis"]
     wave_launches = {k: v["launches"] for k, v in wave["bit_equal"].items()}
     wave_iters = {k: v["iterations"] for k, v in wave["bit_equal"].items()}
     kp = shard_rec["kernel_path"]
@@ -3452,6 +3583,14 @@ def main() -> None:
             sort_share=lb["sizes"]["config_a_100012"]["sort_share"],
             sizes=lb["sizes"], load_scene_s=lb["load_scene_s"], scene_to_ms=lb["scene_to_ms"],
             config_a=lb["config_a"]),
+        row("scan_shade", SCAN_SOURCE, "optix_renderer_tpu/integrators/path.py (li_path_mis / "
+            "li_path_mats' bounce)", shade_launches_a["scan_shade"] + shade_launches_a["scan_fold"],
+            shd_a["L_max_abs_err"], shd_a["ms"], shd_a["plain_ms"], shd_a["bound"],
+            no_pallas_counterpart="the JAX scan path's bounce is XLA",
+            kernel="shade_kernel<MIS> (one thread per lane, a dead lane returning after its fold)",
+            shape="config A's 480,000 camera rays, depth 8, per launch (folds included)",
+            launches_shade=shade_launches_a["scan_shade"],
+            launches_fold=shade_launches_a["scan_fold"], runs=shd),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

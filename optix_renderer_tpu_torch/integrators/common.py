@@ -45,7 +45,14 @@ class ShadingCtx(NamedTuple):
 
 
 def trace(scene: SceneData, ray: Ray) -> ShadingCtx:
-    """Closest hit + shading setup; missed lanes get BSDF 0 / emitter −1.
+    """Closest hit + shading setup (`shading_ctx`)."""
+    hit = intersect(scene.geometry, ray)
+    return shading_ctx(scene, make_interaction(scene.geometry, ray, hit))
+
+
+def shading_ctx(scene: SceneData, its: Interaction) -> ShadingCtx:
+    """The BSDF and emitter ids and the shading frame of an interaction;
+    missed lanes get BSDF 0 / emitter −1.
 
     Tangent-space normal mapping (mesh.cpp:141-186, common.py:48-71 of the
     JAX package): where the shape has a normal map, n_s is perturbed by the
@@ -55,8 +62,6 @@ def trace(scene: SceneData, ray: Ray) -> ShadingCtx:
     back to the Duff frame of n_s. A scene without normal maps skips the
     map's arithmetic (`Shapes.mapped`), which would select n_s everywhere.
     """
-    hit = intersect(scene.geometry, ray)
-    its = make_interaction(scene.geometry, ray, hit)
     sid = torch.clamp(its.shape, min=0).long()
     bsdf_id = torch.where(its.valid, scene.shapes.bsdf[sid], 0)
     emitter_id = torch.where(its.valid, scene.shapes.emitter[sid], -1)
@@ -107,24 +112,34 @@ def nee(scene: SceneData, ctx: ShadingCtx, wo_local, em_id, u3, n_lights: int,
     pdf_ems [N] divided by n_lights, pdf_mat [N] BSDF pdf toward the light,
     visible [N]) — path_mis.cpp:74-106.
     """
+    shadow_ray, contrib, pdf_ems, pdf_mat, nonzero = nee_sample(scene, ctx, wo_local, em_id, u3,
+                                                                n_lights, abs_cos)
+    visible = nonzero & ~occluded(scene.geometry, shadow_ray) & ctx.its.valid
+    contrib = torch.where(visible[..., None], contrib, 0.0)
+    pdf_mat = torch.where(visible, pdf_mat, 0.0)
+    pdf_ems = torch.where(visible, pdf_ems, 0.0)
+    return contrib, pdf_ems, pdf_mat, visible
+
+
+def nee_sample(scene: SceneData, ctx: ShadingCtx, wo_local, em_id, u3, n_lights: int,
+               abs_cos: bool = False):
+    """`nee` before its visibility test: (shadow ray, contrib [N,3], pdf_ems
+    [N], pdf_mat [N], nonzero [N]), each term as `nee` gives it where the
+    light is visible."""
     es = emitter_ops.sample_emitter(scene, em_id, ctx.its.p, u3)
     wi_local = to_local(ctx, es.wi)
     nonzero = torch.any(torch.abs(es.value) > EPSILON, dim=-1)
     shadow_ray = Ray(o=ctx.its.p, d=es.wi, mint=torch.full_like(es.pdf, EPSILON),
                      maxt=es.shadow_maxt)
-    visible = nonzero & ~occluded(scene.geometry, shadow_ray) & ctx.its.valid
     f = bsdf_ops.eval_bsdf(scene.bsdfs, scene.textures, ctx.bsdf_id, wo_local, wi_local,
                            ctx.its.uv)
     cos = dot(es.wi, ctx.frame.n)
     if abs_cos:
         cos = torch.abs(cos)
     contrib = es.value * cos[..., None] * f * float(n_lights)
-    contrib = torch.where(visible[..., None], contrib, 0.0)
     pdf_mat = bsdf_ops.pdf_bsdf(scene.bsdfs, scene.textures, ctx.bsdf_id, wo_local, wi_local,
                                 ctx.its.uv)
-    pdf_mat = torch.where(visible, pdf_mat, 0.0)
-    pdf_ems = torch.where(visible, es.pdf / float(n_lights), 0.0)
-    return contrib, pdf_ems, pdf_mat, visible
+    return shadow_ray, contrib, es.pdf / float(n_lights), pdf_mat, nonzero
 
 
 def first_hit_aovs(scene: SceneData, ctx: ShadingCtx):

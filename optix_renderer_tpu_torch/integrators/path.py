@@ -12,6 +12,11 @@ second ray. Semantics (reference path_mats.cpp, path_mis.cpp:16-149):
   [ε, 0.99]; the NEE contribution is scaled ×numLights with pdf/numLights;
   a discrete BSDF sample sets w_ems = 0, w_mats = 1; the envmap on a miss is
   MIS-weighted against its NEE pdf (the JAX package's balance heuristic).
+
+`li_path_fused` renders either with the shading kernel of `csrc/scan.cu`
+(`ops/cuda/scan.py`): per bounce one closest-hit launch, one shade launch
+and, under path_mis, one any-hit launch of the shadow rays it wrote. The two
+`li_path_*` functions are its plain reference.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ from optix_renderer_tpu_torch.core.math import EPSILON, Ray, normalize
 from optix_renderer_tpu_torch.integrators import common
 from optix_renderer_tpu_torch.ops import bsdf as bsdf_ops
 from optix_renderer_tpu_torch.ops import emitter as emitter_ops
+from optix_renderer_tpu_torch.ops.bvh import BIG
+from optix_renderer_tpu_torch.ops.cuda import scan as scan_shade
 from optix_renderer_tpu_torch.render import sampler as smp
 from optix_renderer_tpu_torch.scene.data import RenderConfig, SceneData
 from optix_renderer_tpu_torch.utils import tracing
@@ -163,3 +170,36 @@ def li_path_mis(scene: SceneData, config: RenderConfig, ray: Ray, sampler):
             rd = torch.where(active[..., None], common.to_world(ctx, bs.wo), rd)
             pdf_mats_prev, prev_discrete, w_mats_prev = bs.pdf, bs.is_discrete, w_mats
     return L, albedo, normal, s
+
+
+def li_path_fused(scene: SceneData, config: RenderConfig, ray: Ray, sampler, sc, shade=None):
+    """`li_path_mis` / `li_path_mats` (by `config.integrator`) with each
+    bounce's shading in one launch of `shade` (by default the kernel,
+    `scan_shade.shade`; or its plain version `scan_shade.shade_ref`) over
+    the lane state of `ops/cuda/scan.py: Lanes`;
+    `sc` is the scene's `ShadeScene` (`scan_shade.prepare`). Returns what
+    they return; the sampler's streams match theirs on the lanes still alive."""
+    shade = shade or scan_shade.shade
+    geom = scene.geometry
+    lanes = scan_shade.Lanes.start(ray, sampler)
+    n, dev = ray.o.shape[0], ray.o.device
+    eps = torch.full((n,), EPSILON, device=dev)
+    big = torch.full((n,), BIG, device=dev)
+    occ = None
+    for bounce in range(config.max_depth):
+        with tracing.span("scan.bounce", bounce=bounce):
+            tracing.count_lanes(lanes.active)  # the lanes entering the bounce, and those alive
+            if bounce == 0:  # the camera's near / far clip, then [ε, ∞)
+                mint, cut = ray.mint, torch.where(torch.isinf(ray.maxt), BIG, ray.maxt)
+            else:
+                mint, cut = eps, big
+            with tracing.span("scan.intersect"):
+                hits = scan_shade.winners(geom, lanes, mint, cut)
+            with tracing.span("scan.shade"):
+                shade(sc, lanes, bounce, hits, occ)
+            if sc.mis:
+                with tracing.span("scan.nee"):
+                    occ = scan_shade.occluders(geom, lanes)
+    if sc.mis:
+        shade(sc, lanes, config.max_depth, None, occ, fold_only=True)
+    return lanes.L, lanes.albedo, lanes.normal, lanes.sampler()

@@ -23,7 +23,8 @@ from optix_renderer_tpu_torch.utils import tracing
 PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("mega.cuh", "walk.cuh", "pathk.cu", "isect.cu", "probes.cu", "track.cu", "lbvh.cu")
+SOURCES = ("mega.cuh", "walk.cuh", "pathk.cu", "isect.cu", "probes.cu", "track.cu", "lbvh.cu",
+           "scan.cu")
 UNITS = tuple(name for name in SOURCES if name.endswith(".cu"))
 # no --use_fast_math: the samplers go through logf/sinf/cosf and must keep
 # full-precision results to track the plain version per pixel.
@@ -191,6 +192,12 @@ def load() -> ctypes.CDLL:
             vp,  # stream
         ]
         lib.lbvh_pairs_launch.restype = i
+        lib.scan_shade_launch.argtypes = [
+            vp, vp,  # the scene's tables, the lanes (csrc/scan.cu: sc::Scene, sc::Lanes)
+            i, i, i,  # bounce, mis, fold_only
+            vp,  # stream
+        ]
+        lib.scan_shade_launch.restype = i
         lib.pathk_error_string.argtypes = [i]
         lib.pathk_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -158,10 +158,22 @@ def mega_unsupported(scene, config) -> str | None:
         return (f"{t_cnt} triangles > {MAX_MXU_TRIS}: the path kernel's LBVH walk takes scenes up "
                 f"to {MAX_MXU_TRIS}, as the JAX kernel does (larger ones in the kernel are "
                 "ROADMAP 'Next' 3)")
-    n_sph = int(g.sph_center.shape[0])
-    if n_sph > MAX_SPHERES:
+    if int(g.sph_center.shape[0]) > MAX_SPHERES:
         return (f"more than {MAX_SPHERES} spheres take the scan path, whose spheres' LBVH walk "
                 "(isect_spheres) the path kernel lacks, as the JAX kernel does")
+    if config.adaptive:
+        return "adaptive configs take the scan path, as in the JAX render()"
+    return surface_unsupported(scene, config)
+
+
+def surface_unsupported(scene, config) -> str | None:
+    """The clauses of `mega_unsupported` on the integrator and the scene's
+    surface features, without its triangle, sphere and adaptive clauses:
+    what the device library of `csrc/mega.cuh` covers, and so the scan
+    path's shading kernel too (`ops/cuda/scan.py`). Reads the scene's
+    tables through one `host_snapshot`."""
+    g = scene.geometry
+    n_sph = int(g.sph_center.shape[0])
     sh, b, em = scene.shapes, scene.bsdfs, scene.emitters
     (sh_em, sph_shape, sh_int, sh_ext, sh_ntex, bt, used, tex_type, et, geom_kind) = (
         x.numpy() for x in host_snapshot((
@@ -175,8 +187,6 @@ def mega_unsupported(scene, config) -> str | None:
         return "a shape with an interior or exterior medium: media take the scan path"
     if scene.ambient_medium >= 0:
         return "an ambient medium: media take the scan path"
-    if config.adaptive:
-        return "adaptive configs take the scan path, as in the JAX render()"
     if np.any(sh_ntex >= 0):
         return "normal maps take the scan path"
     if bt.size and bt.max() > BSDF_DISNEY:

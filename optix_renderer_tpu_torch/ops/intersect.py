@@ -80,39 +80,53 @@ def _ray_spheres(o, d, center, radius):
     return torch.minimum(t0, t1), torch.maximum(t0, t1), ok
 
 
-def _triangle_winner(geom: Geometry, ray: Ray, cutoff, any_hit: bool):
-    """Winning triangle id [N] (−1 on a miss) from the kernel of this
-    scene's size. The brute-force sweep always finds the closest hit, which
-    is also a valid any-hit answer, as in the JAX package.
+def triangle_winner(geom: Geometry, o, d, mint, cutoff, any_hit: bool):
+    """Winning triangle id [N] (−1 on a miss) and its t [N] (cutoff on a
+    miss) from the kernel of this scene's size. The brute-force sweep
+    always finds the closest hit, which is also a valid any-hit answer, as
+    in the JAX package.
 
     The pick is a discrete decision and runs on detached inputs (the JAX
     package's `stop_gradient` before its kernels): the kernels take raw
     pointers, and the plain versions write into their outputs in place,
     which autograd must not follow. `intersect` replays the winner live."""
-    o, d, mint, cutoff = (x.detach() for x in (ray.o, ray.d, ray.mint, cutoff))
+    o, d, mint, cutoff = (x.detach() for x in (o, d, mint, cutoff))
     n_tris = geom.tri_v0.shape[0]
     if n_tris < MIN_TRIS_FOR_BVH:
-        ids, *_ = isect.isect_brute(geom.tri_table.detach(), o, d, mint, cutoff)
-        return ids
+        ids, t, *_ = isect.isect_brute(geom.tri_table.detach(), o, d, mint, cutoff)
+        return ids, t
     if geom.bvh is None:
         raise ValueError(f"{n_tris} triangles need the LBVH tables (scene.data.Bvh); "
                          "build the scene with scene.build or scene_from_numpy")
-    ids, *_ = isect.isect_bvh(geom.bvh.detach(), o, d, mint, cutoff, any_hit=any_hit)
-    return ids
+    ids, t, *_ = isect.isect_bvh(geom.bvh.detach(), o, d, mint, cutoff, any_hit=any_hit)
+    return ids, t
 
 
 def intersect(geom: Geometry, ray: Ray, any_hit: bool = False) -> Hit:
     """Closest-hit (or, with `any_hit`, some hit) of a ray wavefront."""
+    best_t = torch.where(torch.isinf(ray.maxt), BIG, ray.maxt)
+    ids = None
+    if geom.tri_v0.shape[0] > 0:
+        ids, _ = triangle_winner(geom, ray.o, ray.d, ray.mint, best_t, any_hit)
+    return hit_from_winner(geom, ray, best_t, ids, any_hit=any_hit)
+
+
+def hit_from_winner(geom: Geometry, ray: Ray, best_t, ids, sph=None,
+                    any_hit: bool = False) -> Hit:
+    """The rest of `intersect` once the triangle kernel has run: `best_t`
+    [N], the rays' cutoff (`BIG` for an infinite maxt); `ids` [N], the
+    winning triangles (None for a scene without triangles), replayed live;
+    then the spheres: from `MIN_SPHS_FOR_BVH` on, the spheres' LBVH winner
+    `sph` = (id [N], t [N]) if given, else `isect_spheres` is launched here;
+    below, the analytic test of every sphere."""
     n = ray.o.shape[0]
     dev = ray.o.device
-    best_t = torch.where(torch.isinf(ray.maxt), BIG, ray.maxt)
     kind = torch.zeros(n, dtype=torch.int32, device=dev)
     prim = torch.zeros(n, dtype=torch.int32, device=dev)
     bu = torch.zeros(n, dtype=torch.float32, device=dev)
     bv = torch.zeros_like(bu)
 
-    if geom.tri_v0.shape[0] > 0:
-        ids = _triangle_winner(geom, ray, best_t, any_hit)
+    if ids is not None:
         found = ids >= 0
         gid = torch.clamp(ids, min=0).long()
         t_r, u_r, v_r = replay_tri(ray.o, ray.d, geom.tri_v0[gid], geom.tri_e1[gid],
@@ -128,8 +142,10 @@ def intersect(geom: Geometry, ray: Ray, any_hit: bool = False) -> Hit:
         if geom.sph_bvh is None:
             raise ValueError(f"{n_sph} spheres need the spheres' LBVH (Geometry.sph_bvh); "
                              "build the scene with scene.build or scene_from_numpy")
-        o, d, mint, cut = (x.detach() for x in (ray.o, ray.d, ray.mint, best_t))
-        sid, t_det = isect.isect_spheres(geom.sph_bvh.detach(), o, d, mint, cut, any_hit=any_hit)
+        if sph is None:
+            o, d, mint, cut = (x.detach() for x in (ray.o, ray.d, ray.mint, best_t))
+            sph = isect.isect_spheres(geom.sph_bvh.detach(), o, d, mint, cut, any_hit=any_hit)
+        sid, t_det = sph
         found = sid >= 0
         gid = torch.clamp(sid, min=0).long()
         t_r = replay_sphere(ray.o, ray.d, geom.sph_center[gid], geom.sph_radius[gid], t_det)

@@ -30,7 +30,9 @@ import numpy as np
 import torch
 
 from optix_renderer_tpu_torch.integrators import get_integrator
+from optix_renderer_tpu_torch.integrators import path as path_integrators
 from optix_renderer_tpu_torch.ops import camera as camera_ops
+from optix_renderer_tpu_torch.ops.cuda import scan as scan_shade
 from optix_renderer_tpu_torch.render import film
 from optix_renderer_tpu_torch.render import sampler as smp
 from optix_renderer_tpu_torch.render import scan_graph
@@ -131,7 +133,10 @@ def _round_layers(scene: SceneData, config: RenderConfig, pixel_ids, sample_idx,
     ([N]: the adaptive sampler's virtual indices; []: the captured round's
     scalar, `render/scan_graph.py`); either is taken modulo 2^32, as the
     JAX package's uint32 cast takes its int32. `s2c`: the camera's
-    `sample_to_camera_matrix` on the pixels' device, made here when None."""
+    `sample_to_camera_matrix` on the pixels' device, made here when None.
+    A round that `ops/cuda/scan.py: prepare` sends to the shading kernel
+    shades each bounce in one launch (`path.li_path_fused`); any other runs
+    the integrator's torch chain."""
     px = (pixel_ids % config.width).to(torch.float32)
     py = (pixel_ids // config.width).to(torch.float32)
     s = smp.make_sampler(pixel_ids, sample_idx, seed=config.seed)
@@ -140,7 +145,11 @@ def _round_layers(scene: SceneData, config: RenderConfig, pixel_ids, sample_idx,
     pos = torch.stack([px, py], dim=-1) + jitter
     ray, _ = camera_ops.sample_ray(scene.camera, config.width, config.height, pos, aperture,
                                    s2c=s2c)
-    L, albedo, normal, _ = get_integrator(config.integrator)(scene, config, ray, s)
+    sc = scan_shade.prepare(scene, config, pixel_ids.device)
+    if sc is not None:
+        L, albedo, normal, _ = path_integrators.li_path_fused(scene, config, ray, s, sc)
+    else:
+        L, albedo, normal, _ = get_integrator(config.integrator)(scene, config, ray, s)
     # a dead lane's NaN / Inf must not poison the film
     L = torch.nan_to_num(L, nan=0.0, posinf=0.0, neginf=0.0)
     return pos, torch.stack([L, albedo, normal])
@@ -172,7 +181,8 @@ def scan_step(scene: SceneData, config: RenderConfig, device: torch.device):
     spp0 + n_spp − 1, each over chunks of up to `MAX_LANES` pixels: on a
     CUDA device, for `scan_graph.GRAPH_INTEGRATORS` on a scene without
     gradients, by replaying the round captured as a CUDA graph
-    (`render/scan_graph.py`), else eagerly."""
+    (`render/scan_graph.py`), else eagerly. Whether the rounds take the
+    shading kernel is decided here, before any capture."""
     get_integrator(config.integrator)  # an integrator not ported yet raises here
     scene = scene.to(device)
     w, h = config.width, config.height
@@ -190,15 +200,10 @@ def scan_step(scene: SceneData, config: RenderConfig, device: torch.device):
             render_round_accumulate(acc, scene, cfg, ids[c * chunk:(c + 1) * chunk], sample_idx,
                                     s2c)
 
+    fused = scan_shade.prepare(scene, config, ids.device) is not None
     if scan_graph.graphable(scene, config, ids.device):
-        return scan_graph.graph_step(scene, config, ids, rounds)
-
-    def step(acc, spp0: int, n_spp: int) -> None:
-        for s_idx in range(spp0, spp0 + n_spp):
-            scan_graph.count_round(graphed=False)
-            rounds(acc, s_idx, config)
-
-    return step
+        return scan_graph.graph_step(scene, config, ids, rounds, fused)
+    return scan_graph.eager_step(config, rounds, fused)
 
 
 def render(

@@ -41,7 +41,8 @@ from optix_renderer_tpu_torch.scene.data import RenderConfig, SceneData
 from optix_renderer_tpu_torch.utils import tracing
 
 # integrators whose replayed rounds a card test holds bit for bit against
-# eager (tests/test_torch_scan_graph.py); each other one runs eagerly
+# eager (tests/test_torch_scan_graph.py), and whose bounces may take the
+# shading kernel (ops/cuda/scan.py: prepare); each other one runs eagerly
 GRAPH_INTEGRATORS = frozenset({"path_mis", "path_mats"})
 CACHE_SIZE = 4  # captured rounds kept, least recently used first out
 
@@ -91,12 +92,15 @@ def sample_scalar(sample: int, seed: int) -> int:
     return (sample & M32) ^ (seed & M32)
 
 
-def count_round(graphed: bool) -> None:
-    """Count one sample round of `scan_step` in a traced request."""
+def count_round(graphed: bool, fused: bool) -> None:
+    """Count one sample round of `scan_step` in a traced request: in
+    `scan.rounds`, in `scan.rounds_graphed` if it was replayed, and in
+    `scan.rounds_fused` 1 if it took the shading kernel, else 0."""
     if tracing.recording():
         tracing.count("scan.rounds")
         if graphed:
             tracing.count("scan.rounds_graphed")
+        tracing.count("scan.rounds_fused", int(fused))
 
 
 @dataclasses.dataclass
@@ -108,6 +112,7 @@ class _Round:
     film: torch.Tensor  # [3,H,W,4]
     sample: torch.Tensor  # int64 [], sample_scalar()
     keep: tuple  # the scene, pixel ids and matrix whose addresses the graph holds
+    fused: bool  # its bounces shade in the kernel of csrc/scan.cu
 
     def run(self, acc: torch.Tensor, spp0: int, n: int, seed: int) -> None:
         """Samples spp0 … spp0 + n − 1 into `acc`."""
@@ -119,12 +124,12 @@ class _Round:
                 self.sample.fill_(sample_scalar(s, seed))
                 self.graph.replay()
                 tracing.replayed(self.counted)
-                count_round(graphed=True)
+                count_round(graphed=True, fused=self.fused)
         acc.copy_(self.film)
 
 
 def _capture(scene: SceneData, config: RenderConfig, ids: torch.Tensor, rounds,
-             acc: torch.Tensor) -> _Round:
+             acc: torch.Tensor, fused: bool) -> _Round:
     s2c = camera_ops.sample_to_camera_matrix(scene.camera.to("cpu"), config.width,
                                              config.height).to(ids.device)
     film = torch.zeros_like(acc)
@@ -135,23 +140,37 @@ def _capture(scene: SceneData, config: RenderConfig, ids: torch.Tensor, rounds,
     with tracing.capturing(counted), torch.cuda.graph(graph, capture_error_mode="thread_local"):
         rounds(film, sample, dataclasses.replace(config, seed=0), s2c)
     tracing.count("scan.graph_captures")
-    return _Round(graph, counted, film, sample, keep=(scene, ids, s2c))
+    return _Round(graph, counted, film, sample, keep=(scene, ids, s2c), fused=fused)
 
 
-def graph_step(scene: SceneData, config: RenderConfig, ids: torch.Tensor, rounds):
+def eager_step(config: RenderConfig, rounds, fused: bool):
+    """`step(acc, spp0, n)` of `scan_step` for a round that is not
+    `graphable`: `rounds(acc, sample, config)` for each sample in turn."""
+
+    def step(acc: torch.Tensor, spp0: int, n: int) -> None:
+        for s in range(spp0, spp0 + n):
+            count_round(graphed=False, fused=fused)
+            rounds(acc, s, config)
+
+    return step
+
+
+def graph_step(scene: SceneData, config: RenderConfig, ids: torch.Tensor, rounds,
+               fused: bool):
     """`step(acc, spp0, n)` of `scan_step` for a `graphable` round:
     `rounds(acc, sample, config, s2c)` renders one sample round into `acc`
-    (eagerly, or captured when `sample` is the device scalar)."""
+    (eagerly, or captured when `sample` is the device scalar); `fused`: the
+    rounds take the shading kernel (`ops/cuda/scan.py: prepare`)."""
 
     def step(acc: torch.Tensor, spp0: int, n: int) -> None:
         key = cache_key(scene, config, ids.device)
         with _lock, torch.cuda.device(ids.device):
             entry = _cache.get(key)
             if entry is None:
-                count_round(graphed=False)
+                count_round(graphed=False, fused=fused)
                 rounds(acc, spp0, config, None)
                 spp0, n = spp0 + 1, n - 1
-                entry = _cache[key] = _capture(scene, config, ids, rounds, acc)
+                entry = _cache[key] = _capture(scene, config, ids, rounds, acc, fused)
                 while len(_cache) > CACHE_SIZE:
                     _cache.popitem(last=False)
             _cache.move_to_end(key)

@@ -249,12 +249,15 @@ def _setup(card_scenes, name, integrator, seed=1234):
 
 @pytest.fixture
 def eager():
-    """`with eager():` the rule sends no round to the graph."""
+    """`with eager():` the rule sends no round to the graph; the rounds take
+    the shading kernel as the captured ones do."""
 
     @contextlib.contextmanager
     def go():
         with pytest.MonkeyPatch.context() as m:
-            m.setattr(scan_graph, "GRAPH_INTEGRATORS", frozenset())
+            m.setattr(scan_graph, "graph_step",
+                      lambda scene, config, ids, rounds, fused:
+                      scan_graph.eager_step(config, rounds, fused))
             yield
 
     return go
