@@ -995,6 +995,7 @@ def front_end(dev, smi: str, reset_counts, read_counts) -> dict:
         # w·h lanes), then the frame the loop publishes (one layer to the
         # host, encoded as PNG), and on the card a profile of one round
         from optix_renderer_tpu_torch.render import film as film_ops
+        from optix_renderer_tpu_torch.render import scan_graph
         from optix_renderer_tpu_torch.render.render import render_round_accumulate
         from optix_renderer_tpu_torch.scene.build import load_scene
         from optix_renderer_tpu_torch.utils.imageio import encode_png
@@ -1003,16 +1004,17 @@ def front_end(dev, smi: str, reset_counts, read_counts) -> dict:
         cfg_l = dataclasses.replace(cfg_l, max_depth=16)
         ids = torch.arange(w * h, device=dev)
         acc = torch.zeros((3, h, w, 4), device=dev)
-        render_round_accumulate(acc, scene_l, cfg_l, ids, 0)
+        sc_l = scan_graph.shade_scene(scene_l, cfg_l, dev)
+        render_round_accumulate(acc, scene_l, cfg_l, ids, 0, sc_l)
         _sync(dev)
         t0 = time.time()
-        render_round_accumulate(acc, scene_l, cfg_l, ids, 1)
+        render_round_accumulate(acc, scene_l, cfg_l, ids, 1, sc_l)
         _sync(dev)
         round_only_s = time.time() - t0
         t0 = time.time()
         encode_png(film_ops.to_bitmap(acc[0]).cpu().numpy())
         publish_s = time.time() - t0
-        prof = device_breakdown(lambda: (render_round_accumulate(acc, scene_l, cfg_l, ids, 2),
+        prof = device_breakdown(lambda: (render_round_accumulate(acc, scene_l, cfg_l, ids, 2, sc_l),
                                          _sync(dev)), top=4)
         rec[28] = {"size": f"{w}x{h}", "first_round_ready_s": first_s, "s_per_round": s_round,
                    "round_alone_s": round_only_s, "publish_s": publish_s, "profile_round": prof,
@@ -1394,7 +1396,7 @@ def _counted_wavefront(scene, cfg, spp: int, dev) -> tuple:
     orig = wf.wavefront_iter
 
     def counted(acc, state, *a, **k):
-        before = torch.stack([state.active.sum(), state.next_work])
+        before = torch.stack([state.path.active.sum(), state.next_work])
         state, n_active = orig(acc, state, *a, **k)
         rows.append(torch.cat([before, torch.stack([state.next_work, n_active])]))
         return state, n_active
@@ -1444,18 +1446,19 @@ def _splatted(fn) -> tuple:
 
 @contextlib.contextmanager
 def _eager_scan():
-    """Within it, `render.scan_step` runs every round eagerly through the
-    torch chain, as it does for an integrator outside
-    `scan_graph.GRAPH_INTEGRATORS`: the wavefront's bounce
-    (`render/wavefront.py: _bounce`) is that chain's."""
+    """Within it, `render.scan_step` runs every round eagerly (no graph)
+    through the torch chain (the rule answers None: no shading kernel): the
+    wavefront's bounce is that chain's (`integrators/path.py:
+    path_bounce`)."""
     from optix_renderer_tpu_torch.render import scan_graph
 
-    saved = scan_graph.GRAPH_INTEGRATORS
-    scan_graph.GRAPH_INTEGRATORS = frozenset()
+    saved = scan_graph.graph_step, scan_graph.shade_scene
+    scan_graph.graph_step = scan_graph.eager_step
+    scan_graph.shade_scene = lambda scene, config, device: None
     try:
         yield
     finally:
-        scan_graph.GRAPH_INTEGRATORS = saved
+        scan_graph.graph_step, scan_graph.shade_scene = saved
 
 
 def _same_paths(a: tuple, b: tuple) -> bool:
@@ -1896,6 +1899,7 @@ def scan_shading(dev, smi: str, scene_a, cfg_a, scene_b, cfg_b) -> dict:
     from optix_renderer_tpu_torch.ops import camera as cam_ops
     from optix_renderer_tpu_torch.ops.cuda import scan as scan_shade
     from optix_renderer_tpu_torch.render import sampler as smp
+    from optix_renderer_tpu_torch.render import scan_graph
 
     def camera_rays(scene, cfg):
         """The camera rays and samplers of `render._round_layers`, sample 3."""
@@ -1913,7 +1917,7 @@ def scan_shading(dev, smi: str, scene_a, cfg_a, scene_b, cfg_b) -> dict:
             what = f"{name} {integ}"
             cfg = dataclasses.replace(cfg0, integrator=integ, seed=2_900_000_017)
             chain = path_int.li_path_mis if integ == "path_mis" else path_int.li_path_mats
-            sc = scan_shade.prepare(scene, cfg, dev)
+            sc = scan_graph.shade_scene(scene, cfg, dev)
             if sc is None:
                 raise AssertionError(f"{what} did not take the shading kernel")
             ray, s = camera_rays(scene, cfg)

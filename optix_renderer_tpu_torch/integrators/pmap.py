@@ -60,7 +60,7 @@ def li_photonmapper(scene: SceneData, config: RenderConfig, ray, sampler):
     normal = torch.zeros((n, 3), device=dev)
     s = sampler
     for bounce in range(config.max_depth):
-        ctx = common.trace(scene, _segment(ray, ro, rd, bounce))
+        ctx = common.trace(scene, _segment(ro, rd, ray.mint, ray.maxt, bounce))
 
         # miss → envmap (photonmapper.cpp:170-180)
         L = L + t * common.miss_envmap(scene, rd, active & ~ctx.its.valid)

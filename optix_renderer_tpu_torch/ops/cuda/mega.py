@@ -157,7 +157,7 @@ def mega_unsupported(scene, config) -> str | None:
     if t_cnt > MAX_MXU_TRIS:
         return (f"{t_cnt} triangles > {MAX_MXU_TRIS}: the path kernel's LBVH walk takes scenes up "
                 f"to {MAX_MXU_TRIS}, as the JAX kernel does (larger ones in the kernel are "
-                "ROADMAP 'Next' 3)")
+                "ROADMAP Queue C item 1)")
     if int(g.sph_center.shape[0]) > MAX_SPHERES:
         return (f"more than {MAX_SPHERES} spheres take the scan path, whose spheres' LBVH walk "
                 "(isect_spheres) the path kernel lacks, as the JAX kernel does")
@@ -170,8 +170,9 @@ def surface_unsupported(scene, config) -> str | None:
     """The clauses of `mega_unsupported` on the integrator and the scene's
     surface features, without its triangle, sphere and adaptive clauses:
     what the device library of `csrc/mega.cuh` covers, and so the scan
-    path's shading kernel too (`ops/cuda/scan.py`). Reads the scene's
-    tables through one `host_snapshot`."""
+    path's shading kernel too (`ops/cuda/scan.py`; its rule is
+    `render/scan_graph.py: shade_scene`). Reads the scene's tables through
+    one `host_snapshot`."""
     g = scene.geometry
     n_sph = int(g.sph_center.shape[0])
     sh, b, em = scene.shapes, scene.bsdfs, scene.emitters

@@ -12,26 +12,19 @@ chain's order. `integrators/path.py: li_path_fused` is the bounce loop
 around it.
 
 The lane state is one `Lanes` of tensors at fixed shapes, so that a
-captured round (`render/scan_graph.py`) holds them. `shade` launches the
+round captured as a CUDA graph holds them. `shade` launches the
 kernel (a failed launch raises); `shade_ref` is the same contract in plain
 torch over the chain's own helpers, in the kernel's order.
 
-Who takes the kernel (`prepare`): a round that `scan_graph.graphable`
-passes (a CUDA device, `path_mis` or `path_mats`, no scene tensor requiring
-grad) on a scene whose surface features `ops/cuda/mega.py:
-surface_unsupported` passes (no media, textures, normal maps, sphere-area
-or volume emitters, image envmaps, BSDF types past Disney). The second test
-waits on a `host_snapshot`, so it is made once per scene and config,
-outside any capture, and cached by `scan_graph.cache_key`. Every other
-round runs the torch chain.
+Which rounds take the kernel is decided in the render layer, by the rule
+`shade_scene` beside the scan round's CUDA graph, once per render; every
+other round runs the torch chain. This module keeps no state.
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import dataclasses
-import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -44,12 +37,8 @@ from optix_renderer_tpu_torch.ops import bsdf as bsdf_ops
 from optix_renderer_tpu_torch.ops import emitter as emitter_ops
 from optix_renderer_tpu_torch.ops import intersect as isect_ops
 from optix_renderer_tpu_torch.ops.bvh import BIG, MIN_SPHS_FOR_BVH
-from optix_renderer_tpu_torch.ops.cuda import isect, mega
+from optix_renderer_tpu_torch.ops.cuda import isect
 from optix_renderer_tpu_torch.render import sampler as smp
-from optix_renderer_tpu_torch.render import scan_graph
-
-_cache: collections.OrderedDict = collections.OrderedDict()  # cache_key -> ShadeScene | None
-_lock = threading.Lock()
 
 _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -105,29 +94,6 @@ class ShadeScene:
             int(g.tri_v0.shape[0]), int(g.sph_center.shape[0]), int(em.tri_cdf.shape[1]),
             int(scene.emitter_pick.cdf.shape[0]), int(scene.envmap_emitter >= 0),
             float(n_lights), float(np.float32(1.0) / np.float32(n_lights)))
-
-
-def prepare(scene, config, device) -> ShadeScene | None:
-    """The kernel's tables for rounds of (scene, config) on `device`, or
-    None where they run the torch chain. `scan_graph.graphable` is asked
-    every round (the cache key cannot see a table detached with
-    requires_grad set: it keeps its storage and version); the scene's
-    features once per scene and config, so never inside a captured round."""
-    if not scan_graph.graphable(scene, config, device):
-        return None  # no table read: the CPU's rounds, other integrators, gradients
-    key = scan_graph.cache_key(scene, config, device)
-    with _lock:
-        if key in _cache:
-            _cache.move_to_end(key)
-            return _cache[key]
-    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
-        raise RuntimeError("the shading kernel's dispatch is decided before a round is captured")
-    out = None if mega.surface_unsupported(scene, config) else ShadeScene(scene, config)
-    with _lock:
-        _cache[key] = out
-        while len(_cache) > scan_graph.CACHE_SIZE:
-            _cache.popitem(last=False)
-    return out
 
 
 @dataclasses.dataclass

@@ -17,14 +17,15 @@ share runs eagerly on its device:
   first pixel (the JAX kernel's `base_block`), the rows added into one
   accumulator on the mesh's first device (`mega_render._pathk_group`). Any
   other scene takes the scan path: each tile renders its slab of lane ids
-  for sample `base + s` on entry (tile, s), in chunks of `MAX_LANES`, into
-  a film of its own; the films are summed on the first device (the JAX
-  `psum`). On a multi-process mesh (`parallel/multihost.py`) a rank's
-  entries take their ranges or slabs of the global mesh and each group's
-  film is all-reduced, so every rank holds the whole image. Lanes are
-  seeded by (pixel, sample) alone, so the layout never changes a lane; on
-  the kernel path the film equals `render()`'s bit for bit, on the scan
-  path the sum's order moves it by float rounding.
+  for sample `base + s` on entry (tile, s), in chunks of `MAX_LANES`
+  (`render.render_round_accumulate`), into a film of its own; the films
+  are summed on the first device (the JAX `psum`). On a multi-process
+  mesh (`parallel/multihost.py`) a rank's entries take their ranges or
+  slabs of the global mesh and each group's film is all-reduced, so every
+  rank holds the whole image. Lanes are seeded by (pixel, sample) alone,
+  so the layout never changes a lane; on the kernel path the film equals
+  `render()`'s bit for bit, on the scan path the sum's order moves it by
+  float rounding.
 * `sharded_train_step` (shard.py:377-411): each tile renders its lanes
   through `render_round` on its device; the films are summed on the first
   device before `to_bitmap` and the loss, so the gradients are the whole
@@ -53,9 +54,8 @@ import os
 
 import torch
 
-from optix_renderer_tpu_torch.render import film
+from optix_renderer_tpu_torch.render import film, scan_graph
 from optix_renderer_tpu_torch.render.render import (
-    MAX_LANES,
     _layers_out,
     _norm_ckpt_path,
     load_checkpoint,
@@ -176,18 +176,18 @@ def _scenes(scene: SceneData, mesh: DeviceMesh) -> dict:
 
 def scan_round(scenes: dict, config: RenderConfig, mesh: DeviceMesh, slabs, sample_base: int):
     """One sample round of the scan path over this process's entries: entry
-    (tile t, sample s) splats its tile's slab for sample `sample_base + s`,
-    in chunks of up to `MAX_LANES`, into a film of its own on its device;
-    returns their sum on the mesh's first device, [3,H,W,4]."""
+    (tile t, sample s) splats its tile's slab for sample `sample_base + s`
+    (`render.render_round_accumulate`, in chunks of up to `MAX_LANES`) into
+    a film of its own on its device; returns their sum on the mesh's first
+    device, [3,H,W,4]. `scenes` maps each device to its (scene, `sc`), the
+    rule's answer for it (`scan_graph.shade_scene`)."""
     shape = (3, config.height, config.width, 4)
     films = []
     for t, row in enumerate(mesh.devices):
         for s, dev in enumerate(row):
             img = torch.zeros(shape, dtype=torch.float32, device=dev)
-            ids = slabs[t].to(dev)
-            for c in range(0, ids.numel(), MAX_LANES):
-                render_round_accumulate(img, scenes[dev], config, ids[c:c + MAX_LANES],
-                                        sample_base + s)
+            scene, sc = scenes[dev]
+            render_round_accumulate(img, scene, config, slabs[t].to(dev), sample_base + s, sc)
             films.append(img)
     total = films[0].to(mesh.first, copy=True)
     for img in films[1:]:
@@ -236,7 +236,9 @@ def sharded_step(scene: SceneData, config: RenderConfig, mesh: DeviceMesh, kerne
             acc += all_reduce_(part, mesh)
 
         return step
-    scenes = _scenes(scene, mesh)
+    # each device's scene and the rule's answer for it, asked once
+    scenes = {d: (s, scan_graph.shade_scene(s, config, d))
+              for d, s in _scenes(scene, mesh).items()}
     slabs = tile_slabs(config, mesh)
     n_sample = mesh.shape[1]
 

@@ -6,8 +6,9 @@ first `adaptive_uniform_rounds` rounds, then each round draws its budget of
 one sample per pixel from a distribution over the variance map of the whole
 image, until the map is flat or stops improving (adaptive.cpp:95-128). The
 rounds run on the scan path (`render.render_round_accumulate`), whose
-intersections launch the port's kernels on a CUDA device; the stop test
-reads the variance map on the host once per round, as the JAX package does.
+intersections launch the port's kernels on a CUDA device (the shading
+kernel's rule is asked once); the stop test reads the variance map on the
+host once per round, as the JAX package does.
 
 The draw's CDF is built on the host in float64 (`core/dpdf.build`), the JAX
 package's in float32 by XLA, so a uniform that falls within a few ulps of
@@ -21,8 +22,8 @@ import torch
 
 from optix_renderer_tpu_torch.core import dpdf, rng
 from optix_renderer_tpu_torch.render import film as film_mod
+from optix_renderer_tpu_torch.render import scan_graph
 from optix_renderer_tpu_torch.render.render import (
-    MAX_LANES,
     preprocess,
     render_round_accumulate,
     resolve_device,
@@ -54,7 +55,7 @@ def render_adaptive(scene: SceneData, config: RenderConfig, sample_count: int | 
         spp = sample_count if sample_count is not None else config.sample_count
         w, h = config.width, config.height
         n_pix = w * h
-        chunk = min(MAX_LANES, n_pix)
+        sc = scan_graph.shade_scene(scene, config, device)
         all_ids = torch.arange(n_pix, dtype=torch.int64, device=device)
 
         acc = torch.zeros((3, h, w, 4), dtype=torch.float32, device=device)
@@ -83,9 +84,7 @@ def render_adaptive(scene: SceneData, config: RenderConfig, sample_count: int | 
             # a pixel drawn twice in one round needs two streams: a virtual
             # sample index per lane (wraps mod 2^32 as the JAX int32 does)
             sample_idx = r * n_pix + all_ids
-        for c in range(0, n_pix, chunk):
-            si = sample_idx if isinstance(sample_idx, int) else sample_idx[c:c + chunk]
-            render_round_accumulate(acc, scene, config, ids[c:c + chunk], si)
+        render_round_accumulate(acc, scene, config, ids, sample_idx, sc)
         samples_placed += n_pix
         if verbose:
             print(f"  adaptive round {r + 1}/{spp}")

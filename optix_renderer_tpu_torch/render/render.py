@@ -13,8 +13,9 @@ integrator's bounce loop (`integrators/`), whose intersections launch the
 kernels of `csrc/isect.cu` on a CUDA device and run their plain torch
 versions on the CPU, and the filter splat (`render/film.py`); on a CUDA
 device the path integrators' round is captured once as a CUDA graph and
-replayed (`render/scan_graph.py`). A CUDA device without a GPU raises;
-nothing falls back.
+replayed, its bounces shading in `csrc/scan.cu` where the rule
+`scan_graph.shade_scene`, asked once per render, allows. A CUDA device
+without a GPU raises; nothing falls back.
 
 Layer order matches ERenderLayer (integrator.h:29-39):
 0 = composite, 1 = albedo, 2 = normal.
@@ -32,7 +33,6 @@ import torch
 from optix_renderer_tpu_torch.integrators import get_integrator
 from optix_renderer_tpu_torch.integrators import path as path_integrators
 from optix_renderer_tpu_torch.ops import camera as camera_ops
-from optix_renderer_tpu_torch.ops.cuda import scan as scan_shade
 from optix_renderer_tpu_torch.render import film
 from optix_renderer_tpu_torch.render import sampler as smp
 from optix_renderer_tpu_torch.render import scan_graph
@@ -126,7 +126,8 @@ def _layers_out(acc) -> dict[str, np.ndarray]:
     }
 
 
-def _round_layers(scene: SceneData, config: RenderConfig, pixel_ids, sample_idx, s2c=None):
+def _round_layers(scene: SceneData, config: RenderConfig, pixel_ids, sample_idx, sc,
+                  s2c=None):
     """One sample for a chunk of pixels → (pos [N,2], layers [3,N,3])
     (renderBlock, render.cpp:421-459: per-pixel jitter, camera ray, Li).
     `sample_idx` is an int, or an integer tensor of per-lane sample indices
@@ -134,9 +135,8 @@ def _round_layers(scene: SceneData, config: RenderConfig, pixel_ids, sample_idx,
     scalar, `render/scan_graph.py`); either is taken modulo 2^32, as the
     JAX package's uint32 cast takes its int32. `s2c`: the camera's
     `sample_to_camera_matrix` on the pixels' device, made here when None.
-    A round that `ops/cuda/scan.py: prepare` sends to the shading kernel
-    shades each bounce in one launch (`path.li_path_fused`); any other runs
-    the integrator's torch chain."""
+    `sc`: the rule's answer (`scan_graph.shade_scene`), the kernel's tables
+    (`path.li_path_fused`) or None (the integrator's torch chain)."""
     px = (pixel_ids % config.width).to(torch.float32)
     py = (pixel_ids // config.width).to(torch.float32)
     s = smp.make_sampler(pixel_ids, sample_idx, seed=config.seed)
@@ -145,7 +145,6 @@ def _round_layers(scene: SceneData, config: RenderConfig, pixel_ids, sample_idx,
     pos = torch.stack([px, py], dim=-1) + jitter
     ray, _ = camera_ops.sample_ray(scene.camera, config.width, config.height, pos, aperture,
                                    s2c=s2c)
-    sc = scan_shade.prepare(scene, config, pixel_ids.device)
     if sc is not None:
         L, albedo, normal, _ = path_integrators.li_path_fused(scene, config, ray, s, sc)
     else:
@@ -159,51 +158,51 @@ def render_round(scene: SceneData, config: RenderConfig, pixel_ids, sample_idx) 
     """One sample round for `pixel_ids` [N] → a fresh [3,H,W,4] film (the
     JAX `render_round`, render.py:81-90). The scene and the ids lie on one
     device; the film is differentiable with respect to the scene's tensors
-    (`parallel/shard.py: train_step`)."""
-    pos, layers = _round_layers(scene, config, pixel_ids, sample_idx)
+    (`parallel/shard.py: train_step`). The rule is asked here, once."""
+    sc = scan_graph.shade_scene(scene, config, pixel_ids.device)
+    pos, layers = _round_layers(scene, config, pixel_ids, sample_idx, sc)
     return film.splat(config.width, config.height, config.rfilter, pos, layers)
 
 
 @tracing.traced("scan.round")
-def render_round_accumulate(acc, scene: SceneData, config: RenderConfig, pixel_ids,
-                            sample_idx, s2c=None) -> None:
+def render_round_accumulate(acc, scene: SceneData, config: RenderConfig, pixel_ids, sample_idx,
+                            sc, s2c=None) -> None:
     """One sample round for `pixel_ids` [N] int64 (negative ids are padding
-    lanes, outside the image), splatted into `acc` [3,H,W,4] in place;
-    `sample_idx` and `s2c` as in `_round_layers`."""
-    pos, layers = _round_layers(scene, config, pixel_ids, sample_idx, s2c)
-    with tracing.span("scan.splat"):
-        film.splat_(acc, config.rfilter, pos, layers)
+    lanes, outside the image), splatted into `acc` [3,H,W,4] in place, in
+    chunks of up to `MAX_LANES` lanes; `sample_idx` (a per-lane one sliced
+    with the ids), `sc` and `s2c` as in `_round_layers`."""
+    per_lane = isinstance(sample_idx, torch.Tensor) and sample_idx.dim() > 0
+    for c in range(0, pixel_ids.shape[0], MAX_LANES):
+        si = sample_idx[c:c + MAX_LANES] if per_lane else sample_idx
+        pos, layers = _round_layers(scene, config, pixel_ids[c:c + MAX_LANES], si, sc, s2c)
+        with tracing.span("scan.splat"):
+            film.splat_(acc, config.rfilter, pos, layers)
 
 
 def scan_step(scene: SceneData, config: RenderConfig, device: torch.device):
     """The scan path (render.py:246-302 of the JAX package) →
     `step(acc, spp0, n_spp)`, which renders sample rounds spp0 …
-    spp0 + n_spp − 1, each over chunks of up to `MAX_LANES` pixels: on a
-    CUDA device, for `scan_graph.GRAPH_INTEGRATORS` on a scene without
-    gradients, by replaying the round captured as a CUDA graph
-    (`render/scan_graph.py`), else eagerly. Whether the rounds take the
-    shading kernel is decided here, before any capture."""
+    spp0 + n_spp − 1 over the image's pixel ids, padded to whole chunks of
+    `MAX_LANES`: on a CUDA device, for `scan_graph.GRAPH_INTEGRATORS` on a
+    scene without gradients (`scan_graph.graphable`), by replaying the
+    round captured as a CUDA graph (`scan_graph.graph_step`), else eagerly
+    (`scan_graph.eager_step`); either asks the rule for the shading kernel
+    (`scan_graph.shade_scene`) once."""
     get_integrator(config.integrator)  # an integrator not ported yet raises here
     scene = scene.to(device)
     w, h = config.width, config.height
     n_pix = w * h
-    chunk = min(MAX_LANES, n_pix)
-    n_chunks = (n_pix + chunk - 1) // chunk
-    pad = n_chunks * chunk - n_pix
+    pad = -n_pix % min(MAX_LANES, n_pix)
     # padding lanes sit far outside the image, so their splat adds nothing
     ids = torch.cat([torch.arange(n_pix, dtype=torch.int64),
                      torch.full((pad,), -max(w, h) * 4, dtype=torch.int64)]).to(device)
 
-    def rounds(acc, sample_idx, cfg: RenderConfig, s2c=None) -> None:
-        """One sample round, every chunk of it."""
-        for c in range(n_chunks):
-            render_round_accumulate(acc, scene, cfg, ids[c * chunk:(c + 1) * chunk], sample_idx,
-                                    s2c)
+    def rounds(acc, sample_idx, cfg: RenderConfig, sc, s2c) -> None:
+        render_round_accumulate(acc, scene, cfg, ids, sample_idx, sc, s2c)
 
-    fused = scan_shade.prepare(scene, config, ids.device) is not None
     if scan_graph.graphable(scene, config, ids.device):
-        return scan_graph.graph_step(scene, config, ids, rounds, fused)
-    return scan_graph.eager_step(config, rounds, fused)
+        return scan_graph.graph_step(scene, config, ids, rounds)
+    return scan_graph.eager_step(scene, config, ids, rounds)
 
 
 def render(

@@ -6,7 +6,8 @@ paces it. On a CUDA device, for an integrator in `GRAPH_INTEGRATORS` and a
 scene none of whose tensors requires grad (`graphable`), `graph_step` renders
 the round through the same code, captured once into a `torch.cuda.CUDAGraph`
 and replayed for every later sample: one graph launch a sample. Every other
-round runs that code eagerly.
+round runs that code eagerly (`eager_step`). `shade_scene` is the one rule
+for the rounds whose bounces take the shading kernel of `csrc/scan.cu`.
 
 What a replay bakes in, and how it is fed:
 
@@ -37,12 +38,14 @@ import torch
 
 from optix_renderer_tpu_torch.core.rng import M32
 from optix_renderer_tpu_torch.ops import camera as camera_ops
+from optix_renderer_tpu_torch.ops.cuda import mega
+from optix_renderer_tpu_torch.ops.cuda import scan as scan_shade
 from optix_renderer_tpu_torch.scene.data import RenderConfig, SceneData
 from optix_renderer_tpu_torch.utils import tracing
 
 # integrators whose replayed rounds a card test holds bit for bit against
 # eager (tests/test_torch_scan_graph.py), and whose bounces may take the
-# shading kernel (ops/cuda/scan.py: prepare); each other one runs eagerly
+# shading kernel (`shade_scene`); each other one runs eagerly
 GRAPH_INTEGRATORS = frozenset({"path_mis", "path_mats"})
 CACHE_SIZE = 4  # captured rounds kept, least recently used first out
 
@@ -86,6 +89,19 @@ def graphable(scene: SceneData, config: RenderConfig, device) -> bool:
             and not any(t.requires_grad for t in _tensors(scene)))
 
 
+def shade_scene(scene: SceneData, config: RenderConfig, device) -> scan_shade.ShadeScene | None:
+    """The shading kernel's tables for the scan rounds of (scene, config) on
+    `device`, or None where they run the torch chain: the kernel takes what
+    `graphable` passes and `ops/cuda/mega.py: surface_unsupported` finds no
+    fault in. That test waits on a `host_snapshot`, so each render asks once,
+    before any capture, and passes the answer down."""
+    if not graphable(scene, config, device):
+        return None  # no table read: the CPU's rounds, other integrators, gradients
+    if mega.surface_unsupported(scene, config):
+        return None
+    return scan_shade.ShadeScene(scene, config)
+
+
 def sample_scalar(sample: int, seed: int) -> int:
     """The value of the round's sample scalar: `make_sampler(pixels, it,
     seed=0)` draws what `make_sampler(pixels, sample, seed=seed)` does."""
@@ -112,7 +128,7 @@ class _Round:
     film: torch.Tensor  # [3,H,W,4]
     sample: torch.Tensor  # int64 [], sample_scalar()
     keep: tuple  # the scene, pixel ids and matrix whose addresses the graph holds
-    fused: bool  # its bounces shade in the kernel of csrc/scan.cu
+    sc: scan_shade.ShadeScene | None  # the rule's answer: its bounces take csrc/scan.cu
 
     def run(self, acc: torch.Tensor, spp0: int, n: int, seed: int) -> None:
         """Samples spp0 … spp0 + n − 1 into `acc`."""
@@ -124,12 +140,12 @@ class _Round:
                 self.sample.fill_(sample_scalar(s, seed))
                 self.graph.replay()
                 tracing.replayed(self.counted)
-                count_round(graphed=True, fused=self.fused)
+                count_round(graphed=True, fused=self.sc is not None)
         acc.copy_(self.film)
 
 
 def _capture(scene: SceneData, config: RenderConfig, ids: torch.Tensor, rounds,
-             acc: torch.Tensor, fused: bool) -> _Round:
+             acc: torch.Tensor, sc) -> _Round:
     s2c = camera_ops.sample_to_camera_matrix(scene.camera.to("cpu"), config.width,
                                              config.height).to(ids.device)
     film = torch.zeros_like(acc)
@@ -138,39 +154,41 @@ def _capture(scene: SceneData, config: RenderConfig, ids: torch.Tensor, rounds,
     counted = tracing.Capture()
     # "thread_local": CUDA calls of another thread do not invalidate the capture
     with tracing.capturing(counted), torch.cuda.graph(graph, capture_error_mode="thread_local"):
-        rounds(film, sample, dataclasses.replace(config, seed=0), s2c)
+        rounds(film, sample, dataclasses.replace(config, seed=0), sc, s2c)
     tracing.count("scan.graph_captures")
-    return _Round(graph, counted, film, sample, keep=(scene, ids, s2c), fused=fused)
+    return _Round(graph, counted, film, sample, keep=(scene, ids, s2c), sc=sc)
 
 
-def eager_step(config: RenderConfig, rounds, fused: bool):
+def eager_step(scene: SceneData, config: RenderConfig, ids: torch.Tensor, rounds):
     """`step(acc, spp0, n)` of `scan_step` for a round that is not
-    `graphable`: `rounds(acc, sample, config)` for each sample in turn."""
+    `graphable`: `rounds(acc, sample, config, sc, None)` for each sample in
+    turn, `sc` the rule's answer, asked once."""
+    sc = shade_scene(scene, config, ids.device)
 
     def step(acc: torch.Tensor, spp0: int, n: int) -> None:
         for s in range(spp0, spp0 + n):
-            count_round(graphed=False, fused=fused)
-            rounds(acc, s, config)
+            count_round(graphed=False, fused=sc is not None)
+            rounds(acc, s, config, sc, None)
 
     return step
 
 
-def graph_step(scene: SceneData, config: RenderConfig, ids: torch.Tensor, rounds,
-               fused: bool):
+def graph_step(scene: SceneData, config: RenderConfig, ids: torch.Tensor, rounds):
     """`step(acc, spp0, n)` of `scan_step` for a `graphable` round:
-    `rounds(acc, sample, config, s2c)` renders one sample round into `acc`
-    (eagerly, or captured when `sample` is the device scalar); `fused`: the
-    rounds take the shading kernel (`ops/cuda/scan.py: prepare`)."""
+    `rounds(acc, sample, config, sc, s2c)` renders one sample round into
+    `acc` (eagerly, or captured when `sample` is the device scalar). On a
+    miss the rule gives `sc`, which the captured entry keeps."""
 
     def step(acc: torch.Tensor, spp0: int, n: int) -> None:
         key = cache_key(scene, config, ids.device)
         with _lock, torch.cuda.device(ids.device):
             entry = _cache.get(key)
             if entry is None:
-                count_round(graphed=False, fused=fused)
-                rounds(acc, spp0, config, None)
+                sc = shade_scene(scene, config, ids.device)
+                count_round(graphed=False, fused=sc is not None)
+                rounds(acc, spp0, config, sc, None)
                 spp0, n = spp0 + 1, n - 1
-                entry = _cache[key] = _capture(scene, config, ids, rounds, acc, fused)
+                entry = _cache[key] = _capture(scene, config, ids, rounds, acc, sc)
                 while len(_cache) > CACHE_SIZE:
                     _cache.popitem(last=False)
             _cache.move_to_end(key)

@@ -12,12 +12,13 @@ pixel-major, so a refill is a run of neighbouring pixels.
 
 Each path's arithmetic is the scan path's: the same sampler stream per
 (pixel, sample), the same draws in the same order, the same bounce body
-with a per-lane bounce counter in place of the loop index. Only the lane
-a path runs on changes, so each path's radiance and AOVs are bit for bit
-the scan path's, and the films differ in the order of their additions
-only. With the box filter at 2 spp a pixel adds two samples of weight 1,
-which commute, except where pixel + jitter rounds up to the next pixel's
-edge (a jitter within an ulp of 1): that pixel then adds three. Intersections go through
+(`integrators/path.py: path_bounce`) with a per-lane bounce counter in
+place of the loop index. Only the lane a path runs on changes, so each
+path's radiance and AOVs are bit for bit the scan path's, and the films
+differ in the order of their additions only. With the box filter at 2
+spp a pixel adds two samples of weight 1, which commute, except where
+pixel + jitter rounds up to the next pixel's edge (a jitter within an ulp
+of 1): that pixel then adds three. Intersections go through
 `integrators/common.trace`: `isect_brute` / `isect_bvh` of `csrc/isect.cu`
 on a CUDA device, their plain versions on the CPU.
 
@@ -34,11 +35,9 @@ import numpy as np
 import torch
 
 from optix_renderer_tpu_torch.core import rng
-from optix_renderer_tpu_torch.core.math import EPSILON, Ray, normalize
-from optix_renderer_tpu_torch.integrators import common
-from optix_renderer_tpu_torch.ops import bsdf as bsdf_ops
+from optix_renderer_tpu_torch.core.math import Ray
+from optix_renderer_tpu_torch.integrators import path as path_int
 from optix_renderer_tpu_torch.ops import camera as camera_ops
-from optix_renderer_tpu_torch.ops import emitter as emitter_ops
 from optix_renderer_tpu_torch.render import film
 from optix_renderer_tpu_torch.render import sampler as smp
 from optix_renderer_tpu_torch.render.render import _layers_out, preprocess, resolve_device
@@ -50,53 +49,33 @@ WAVEFRONT_INTEGRATORS = ("path_mats", "path_mis")
 
 
 class PathState(NamedTuple):
-    """Each lane's live path (the reference's per-thread `RadiancePrd`, with
-    the MIS carry of `integrators/path.py: li_path_mis`) and the work
-    counter, all on one device."""
+    """The lane pool on one device: each lane's live path (the reference's
+    per-thread `RadiancePrd` with the MIS carry), its bounce counter and
+    film position, and the work counter."""
 
-    active: torch.Tensor  # [N] bool: the lane holds a live path
+    path: path_int.PathLanes  # `active`: the lane holds a live path
     bounce: torch.Tensor  # [N] int64: bounces done
     pos: torch.Tensor  # [N,2] film position (pixel + jitter)
-    ro: torch.Tensor  # [N,3]
-    rd: torch.Tensor  # [N,3]
-    cam_mint: torch.Tensor  # [N] the camera ray's near clip
-    cam_maxt: torch.Tensor  # [N] and far clip
-    tput: torch.Tensor  # [N,3]
-    L: torch.Tensor  # [N,3]
-    albedo: torch.Tensor  # [N,3]
-    normal: torch.Tensor  # [N,3]
-    pdf_mats_prev: torch.Tensor  # [N]
-    prev_discrete: torch.Tensor  # [N] bool
-    w_mats_prev: torch.Tensor  # [N]
-    sampler: smp.Sampler
     next_work: torch.Tensor  # [] int64: the next work item to hand out
 
 
 def init_state(n: int, seed: int = 0, device="cuda") -> PathState:
     """A pool of `n` idle lanes on `device`."""
     dev = torch.device(device)
+    z, zi = torch.zeros(n, device=dev), torch.zeros(n, dtype=torch.int64, device=dev)
+    idle = Ray(torch.zeros((n, 3), device=dev), torch.zeros((n, 3), device=dev), z, z)
+    path = path_int.PathLanes.start(idle, smp.make_sampler(zi, zi, seed))
+    return PathState(path._replace(active=torch.zeros_like(path.active)), bounce=zi,
+                     pos=torch.zeros((n, 2), device=dev),
+                     next_work=torch.zeros((), dtype=torch.int64, device=dev))
 
-    def z(shape, dtype=torch.float32):
-        return torch.zeros(shape, dtype=dtype, device=dev)
 
-    return PathState(
-        active=z(n, torch.bool),
-        bounce=z(n, torch.int64),
-        pos=z((n, 2)),
-        ro=z((n, 3)),
-        rd=z((n, 3)),
-        cam_mint=z(n),
-        cam_maxt=z(n),
-        tput=torch.ones((n, 3), device=dev),
-        L=z((n, 3)),
-        albedo=z((n, 3)),
-        normal=z((n, 3)),
-        pdf_mats_prev=z(n),
-        prev_discrete=z(n, torch.bool),
-        w_mats_prev=torch.ones(n, device=dev),
-        sampler=smp.make_sampler(z(n, torch.int64), z(n, torch.int64), seed),
-        next_work=z((), torch.int64),
-    )
+def _take(spawn, new, old):
+    """`new` on the spawning lanes, `old` on the others (tensors or samplers)."""
+    if isinstance(new, smp.Sampler):
+        return smp.Sampler(rng.Pcg32State(*(torch.where(spawn, a, b)
+                                            for a, b in zip(new.state, old.state))))
+    return path_int._where(spawn, new, old)
 
 
 def _refill(state: PathState, scene: SceneData, config: RenderConfig, total_work: int,
@@ -106,9 +85,9 @@ def _refill(state: PathState, scene: SceneData, config: RenderConfig, total_work
     stream is `render._round_layers`'s: `make_sampler(pixel, sample)`, then
     the 2D jitter and the 2D aperture draws. `s2c` as in
     `camera_ops.sample_ray`."""
-    n = state.active.shape[0]
+    n = state.bounce.shape[0]
     n_pix = config.width * config.height
-    free = ~state.active
+    free = ~state.path.active
     rank = torch.cumsum(free.to(torch.int64), dim=0) - 1
     w_id = state.next_work + rank
     spawn = free & (w_id < total_work)
@@ -123,133 +102,23 @@ def _refill(state: PathState, scene: SceneData, config: RenderConfig, total_work
     pos = torch.stack([px, py], dim=-1) + jitter
     ray, _ = camera_ops.sample_ray(scene.camera, config.width, config.height, pos, aperture,
                                    s2c=s2c)
-
-    sp = spawn[:, None]
-    sampler = smp.Sampler(state=rng.Pcg32State(*(
-        torch.where(spawn, new, old) for new, old in zip(s.state, state.sampler.state))))
+    fresh = path_int.PathLanes.start(ray, s)
     return PathState(
-        active=state.active | spawn,
-        bounce=torch.where(spawn, 0, state.bounce),
-        pos=torch.where(sp, pos, state.pos),
-        ro=torch.where(sp, ray.o, state.ro),
-        rd=torch.where(sp, ray.d, state.rd),
-        cam_mint=torch.where(spawn, ray.mint, state.cam_mint),
-        cam_maxt=torch.where(spawn, ray.maxt, state.cam_maxt),
-        tput=torch.where(sp, 1.0, state.tput),
-        L=torch.where(sp, 0.0, state.L),
-        albedo=torch.where(sp, 0.0, state.albedo),
-        normal=torch.where(sp, 0.0, state.normal),
-        pdf_mats_prev=torch.where(spawn, 0.0, state.pdf_mats_prev),
-        prev_discrete=state.prev_discrete & ~spawn,
-        w_mats_prev=torch.where(spawn, 1.0, state.w_mats_prev),
-        sampler=sampler,
-        next_work=torch.clamp(state.next_work + free.sum(), max=total_work + n),
-    )
+        path=path_int.PathLanes(*(_take(spawn, a, b) for a, b in zip(fresh, state.path))),
+        bounce=torch.where(spawn, 0, state.bounce), pos=_take(spawn, pos, state.pos),
+        next_work=torch.clamp(state.next_work + free.sum(), max=total_work + n))
 
 
 def _bounce(state: PathState, scene: SceneData, config: RenderConfig) -> PathState:
-    """One bounce of every lane: the body of `li_path_mats` / `li_path_mis`
-    (`integrators/path.py`), with the lane's `bounce` in place of the loop
-    index, the same expressions and the same draws, so each path's radiance
-    and AOVs are bit for bit the scan path's."""
-    mis = config.integrator == "path_mis"
-    n_lights = max(config.n_emitters, 1)
-    active = state.active
-    first = state.bounce == 0
-    ro, rd, t, L, s = state.ro, state.rd, state.tput, state.L, state.sampler
-    pdf_mats_prev, prev_discrete = state.pdf_mats_prev, state.prev_discrete
-
-    # the first segment keeps the camera's near / far clip, later ones [ε, ∞)
-    r = Ray(o=ro, d=rd, mint=torch.where(first, state.cam_mint, EPSILON),
-            maxt=torch.where(first, state.cam_maxt, float("inf")))
-    ctx = common.trace(scene, r)
-
-    if mis:
-        # miss → envmap, MIS-weighted against the NEE envmap pdf
-        pdf_env_dir = emitter_ops.pdf_envmap_direction(scene, rd) / float(n_lights)
-        denom_env = pdf_mats_prev + pdf_env_dir
-        w_env = torch.where(denom_env > EPSILON,
-                            pdf_mats_prev / torch.clamp(denom_env, min=1e-20), 1.0)
-        w_env = torch.where(prev_discrete | first, 1.0, w_env)
-        env = common.miss_envmap(scene, rd, active & ~ctx.its.valid)
-        L = L + w_env[..., None] * t * env
-    else:
-        hit = ctx.its.valid & active
-        L = L + t * common.miss_envmap(scene, rd, active & ~ctx.its.valid)
-    active = active & ctx.its.valid
-
-    a0, n0 = common.first_hit_aovs(scene, ctx)
-    albedo = torch.where(first[..., None], a0, state.albedo)
-    normal = torch.where(first[..., None], n0, state.normal)
-
-    if mis:
-        # emitter hit with the lazily computed w_mats
-        hit_em = active & (ctx.emitter_id >= 0)
-        pdf_ems_here = emitter_ops.pdf_hit_emitter(
-            scene, ctx.emitter_id, ro, ctx.its.p, ctx.frame.n, normalize(rd)) / float(n_lights)
-        denom = pdf_mats_prev + pdf_ems_here
-        w_mats = torch.where(denom > EPSILON, pdf_mats_prev / torch.clamp(denom, min=1e-20),
-                             state.w_mats_prev)
-        w_mats = torch.where(prev_discrete | first, 1.0, w_mats)
-        L = L + torch.where(hit_em[..., None],
-                            w_mats[..., None] * t * common.hit_emitter_radiance(scene, ctx, rd),
-                            0.0)
-
-        # Russian roulette from the first vertex (path_mis.cpp:58-71)
-        s, u_rr = smp.next_1d(s)
-        succ = torch.clamp(torch.amax(t, dim=-1), EPSILON, 0.99)
-        die = (u_rr > succ) & active
-        t = torch.where(active[..., None], t / succ[..., None], t)
-        active = active & ~die
-
-        # NEE (path_mis.cpp:74-106)
-        wo_local = common.to_local(ctx, -normalize(rd))
-        s, u_pick = smp.next_1d(s)
-        em_id = common.pick_emitter(scene, u_pick)
-        s, u_ems = smp.next_3d(s)
-        ems_contrib, pdf_ems, pdf_mat_at_ems, _ = common.nee(
-            scene, ctx, wo_local, em_id, u_ems, n_lights=n_lights)
-        w_ems = torch.where(pdf_ems + pdf_mat_at_ems > EPSILON,
-                            pdf_ems / torch.clamp(pdf_ems + pdf_mat_at_ems, min=1e-20), 0.0)
-
-        # BSDF sampling (path_mis.cpp:108-133)
-        s, u_mats = smp.next_2d(s)
-        bs = bsdf_ops.sample_bsdf(scene.bsdfs, scene.textures, ctx.bsdf_id, wo_local,
-                                  ctx.its.uv, u_mats)
-        w_ems = torch.where(bs.is_discrete, 0.0, w_ems)  # path_mis.cpp:135-140
-        L = L + torch.where(active[..., None], w_ems[..., None] * t * ems_contrib, 0.0)
-        pdf_mats_prev, prev_discrete, w_mats_prev = bs.pdf, bs.is_discrete, w_mats
-    else:
-        L = L + torch.where(hit[..., None], t * common.hit_emitter_radiance(scene, ctx, rd), 0.0)
-
-        # Russian roulette after 3 bounces (path_mats.cpp:47-58); the draw
-        # comes on every bounce, as in the scan
-        s, u_rr = smp.next_1d(s)
-        succ = torch.clamp(torch.amax(t, dim=-1), max=0.99)
-        rr_on = state.bounce >= 3
-        die = rr_on & (u_rr > succ) & active
-        t = torch.where((rr_on & active)[..., None],
-                        t / torch.clamp(succ, min=1e-12)[..., None], t)
-        active = active & ~die
-
-        wo_local = common.to_local(ctx, -normalize(rd))
-        s, u2 = smp.next_2d(s)
-        bs = bsdf_ops.sample_bsdf(scene.bsdfs, scene.textures, ctx.bsdf_id, wo_local,
-                                  ctx.its.uv, u2)
-        w_mats_prev = state.w_mats_prev
-
-    t = torch.where(active[..., None], t * bs.weight, t)
-    active = active & torch.any(torch.abs(t) > 1e-12, dim=-1)
-    # the depth cap: the scan stops running bounces; here the lane ends and
-    # takes new work
-    active = active & (state.bounce + 1 < config.max_depth)
-
-    ro = torch.where(active[..., None], ctx.its.p, ro)
-    rd = torch.where(active[..., None], common.to_world(ctx, bs.wo), rd)
-    return state._replace(
-        active=active, bounce=state.bounce + 1, ro=ro, rd=rd, tput=t, L=L, albedo=albedo,
-        normal=normal, pdf_mats_prev=pdf_mats_prev, prev_discrete=prev_discrete,
-        w_mats_prev=w_mats_prev, sampler=s)
+    """One bounce of every lane, `integrators/path.py: path_bounce` (the
+    scan path's body) with the lane's `bounce` in place of the loop index,
+    so each path's radiance and AOVs are bit for bit the scan path's; then
+    the depth cap: where the scan stops running bounces, the lane ends and
+    takes new work."""
+    path = path_int.path_bounce(scene, config, state.path, state.bounce,
+                                mis=config.integrator == "path_mis")
+    path = path._replace(active=path.active & (state.bounce + 1 < config.max_depth))
+    return state._replace(path=path, bounce=state.bounce + 1)
 
 
 def wavefront_iter(acc: torch.Tensor, state: PathState, scene: SceneData, config: RenderConfig,
@@ -258,14 +127,14 @@ def wavefront_iter(acc: torch.Tensor, state: PathState, scene: SceneData, config
     [3,H,W,4] in place. Returns (state, n_active), the live lanes' count a
     tensor on the device: nothing here waits for the device."""
     state = _refill(state, scene, config, total_work, s2c)
-    was_active = state.active
+    was_active = state.path.active
     state = _bounce(state, scene, config)
-    term = was_active & ~state.active
+    p = state.path
     # a dead lane's NaN / Inf must not poison the film
-    L = torch.nan_to_num(state.L, nan=0.0, posinf=0.0, neginf=0.0)
-    film.splat_(acc, config.rfilter, state.pos, torch.stack([L, state.albedo, state.normal]),
-                mask=term)
-    return state, state.active.sum()
+    L = torch.nan_to_num(p.L, nan=0.0, posinf=0.0, neginf=0.0)
+    film.splat_(acc, config.rfilter, state.pos, torch.stack([L, p.albedo, p.normal]),
+                mask=was_active & ~p.active)
+    return state, p.active.sum()
 
 
 @tracing.traced("render")

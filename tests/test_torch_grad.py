@@ -463,7 +463,7 @@ def test_render_round_is_accumulate_into_zeros(rfilter):
     assert img.requires_grad
     acc = torch.zeros((3, config.height, config.width, 4))
     with torch.no_grad():
-        render_round_accumulate(acc, scene, config, pix, 3)
+        render_round_accumulate(acc, scene, config, pix, 3, None)
     assert torch.equal(img.detach(), acc)
 
     gen = torch.Generator().manual_seed(5)

@@ -84,9 +84,11 @@ def test_the_captured_rounds_inputs_give_the_eager_layers(box, integrator):
     ids = torch.cat([torch.arange(192), torch.full((8,), -64)])
     s2c = camera_ops.sample_to_camera_matrix(scene.camera, cfg.width, cfg.height)
     for seed, sample in ((11, 0), (2**31 - 5, 3)):
-        pos, layers = _round_layers(scene, dataclasses.replace(cfg, seed=seed), ids, sample)
+        pos, layers = _round_layers(scene, dataclasses.replace(cfg, seed=seed), ids, sample,
+                                    None)
         scalar = torch.tensor(scan_graph.sample_scalar(sample, seed))
-        pos_g, layers_g = _round_layers(scene, dataclasses.replace(cfg, seed=0), ids, scalar, s2c)
+        pos_g, layers_g = _round_layers(scene, dataclasses.replace(cfg, seed=0), ids, scalar,
+                                        None, s2c)
         assert torch.equal(pos, pos_g) and torch.equal(layers, layers_g)
 
 
@@ -169,7 +171,7 @@ def test_a_capture_keeps_its_counts_and_each_replay_counts_them(box):
     tracing.enable()
     base = {k: tracing.counter(k) for k in ("scan.lanes", "scan.lanes_live", "launch.x")}
     with tracing.span("render"):  # an eager traced round: the reference counts
-        _round_layers(scene, cfg, ids, 1)
+        _round_layers(scene, cfg, ids, 1, None)
     tracing.fold_device()
     eager = {k: tracing.counter(k) - base[k] for k in base}
     assert eager["scan.lanes"] == 4 * 192 and 0 < eager["scan.lanes_live"] < 4 * 192
@@ -179,7 +181,7 @@ def test_a_capture_keeps_its_counts_and_each_replay_counts_them(box):
     base = {k: tracing.counter(k) for k in base}
     with tracing.capturing(cap):
         tracing.count("launch.x", 3)
-        _round_layers(scene, cfg, ids, 1)  # untraced, yet the lanes are counted
+        _round_layers(scene, cfg, ids, 1, None)  # untraced, yet the lanes are counted
     assert {k: tracing.counter(k) for k in base} == base
     assert cap.counts == {"launch.x": 3} and cap.n_lanes == 4 * 192
     assert len(cap.lanes) == 4 and all(b.dtype == torch.int32 for b in cap.lanes)
@@ -255,9 +257,7 @@ def eager():
     @contextlib.contextmanager
     def go():
         with pytest.MonkeyPatch.context() as m:
-            m.setattr(scan_graph, "graph_step",
-                      lambda scene, config, ids, rounds, fused:
-                      scan_graph.eager_step(config, rounds, fused))
+            m.setattr(scan_graph, "graph_step", scan_graph.eager_step)
             yield
 
     return go
@@ -287,14 +287,17 @@ def test_replayed_layers_equal_eager_bit_for_bit(card_scenes, name, integrator):
     s2c = camera_ops.sample_to_camera_matrix(scene.camera.to("cpu"), cfg.width,
                                              cfg.height).to(dev)
     scalar = torch.zeros((), dtype=torch.int64, device=dev)
-    _round_layers(scene, cfg, ids, 0)  # warm: load every kernel before the capture
+    sc = scan_graph.shade_scene(scene, cfg, dev)  # the rule, as render() asks it
+    _round_layers(scene, cfg, ids, 0, sc)  # warm: load every kernel before the capture
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph()
     with torch.cuda.graph(g):
-        pos_g, layers_g = _round_layers(scene, dataclasses.replace(cfg, seed=0), ids, scalar, s2c)
+        pos_g, layers_g = _round_layers(scene, dataclasses.replace(cfg, seed=0), ids, scalar, sc,
+                                        s2c)
     for seed in (7, 2**31 - 11):
         for sample in (0, 3):
-            pos, layers = _round_layers(scene, dataclasses.replace(cfg, seed=seed), ids, sample)
+            pos, layers = _round_layers(scene, dataclasses.replace(cfg, seed=seed), ids, sample,
+                                        sc)
             scalar.fill_(scan_graph.sample_scalar(sample, seed))
             g.replay()
             assert torch.equal(pos_g, pos) and torch.equal(layers_g, layers), (seed, sample)

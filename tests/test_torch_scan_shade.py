@@ -256,11 +256,11 @@ CASES = (["take: " + n for n in SCENES]
 
 
 @pytest.mark.parametrize("case", CASES)
-def test_who_takes_the_kernel(scenes, case, monkeypatch):
-    """Each eligible scene takes the kernel under both integrators; each
-    refusal differs from the eligible box in one thing, and its reason is
-    either `scan_graph.graphable`'s or `mega.surface_unsupported`'s."""
-    monkeypatch.setattr(scan_shade, "_cache", type(scan_shade._cache)())
+def test_who_takes_the_kernel(scenes, case):
+    """The rule (`scan_graph.shade_scene`): each eligible scene takes the
+    kernel under both integrators; each refusal differs from the eligible
+    box in one thing, and its reason is either `scan_graph.graphable`'s or
+    `mega.surface_unsupported`'s."""
     verdict, name = case.split(": ")
     if verdict == "take":
         scene, cfg = scenes[name]
@@ -268,11 +268,11 @@ def test_who_takes_the_kernel(scenes, case, monkeypatch):
             c = dataclasses.replace(cfg, integrator=integ)
             assert mega.surface_unsupported(scene, c) is None
             for dev in ("cuda", torch.device("cuda", 1)):
-                sc = scan_shade.prepare(scene, c, dev)
+                sc = scan_graph.shade_scene(scene, c, dev)
                 assert isinstance(sc, scan_shade.ShadeScene) and sc.mis == (integ == "path_mis")
         return
     scene, cfg, device, why = _refusals(scenes)[name]
-    assert scan_shade.prepare(scene, cfg, device) is None
+    assert scan_graph.shade_scene(scene, cfg, device) is None
     if why is None:
         assert not scan_graph.graphable(scene, cfg, device)
         return
@@ -282,37 +282,56 @@ def test_who_takes_the_kernel(scenes, case, monkeypatch):
 
 
 def test_the_decision_is_cached_per_scene_and_config(scenes, monkeypatch):
+    """The rule is asked once per render, never per round or per chunk, and
+    every chunk gets its answer: a scan render through `render()`, an
+    adaptive render and a sharded scan render (`shard.scan_round`), with
+    `MAX_LANES` cut so that each round has three chunks. On the CPU it reads
+    no table. (A card's graphed render keeps the answer in its captured
+    round, keyed by scene and config: `test_traced_rounds_count_the_fused_rounds`.)"""
+    from optix_renderer_tpu_torch.parallel import shard
+    from optix_renderer_tpu_torch.render.adaptive import render_adaptive
+
     scene, cfg = scenes["box"]
-    calls = []
-    real = mega.surface_unsupported
+    cfg = dataclasses.replace(cfg, max_depth=2)
+    n_pix = cfg.width * cfg.height
+    monkeypatch.setattr(render_mod, "MAX_LANES", n_pix // 3)
+    asked, chunks, tables = [], [], []
+    rule, layers = scan_graph.shade_scene, render_mod._round_layers
 
-    def counted(*args):
-        calls.append(args)
-        return real(*args)
+    def asking(*args):
+        asked.append(args)
+        return rule(*args)
 
-    monkeypatch.setattr(mega, "surface_unsupported", counted)
-    monkeypatch.setattr(scan_shade, "_cache", type(scan_shade._cache)())
-    assert scan_shade.prepare(scene, cfg, "cpu") is None and not calls  # no table read
-    sc = scan_shade.prepare(scene, cfg, "cuda")
-    assert isinstance(sc, scan_shade.ShadeScene) and sc.mis
-    for seed in (1, 2**31 - 1):
-        assert scan_shade.prepare(scene, dataclasses.replace(cfg, seed=seed), "cuda") is sc
-    assert len(calls) == 1
-    scan_shade.prepare(scene, dataclasses.replace(cfg, max_depth=3), "cuda")
-    assert len(calls) == 2
+    def chunk(scene, config, ids, sample_idx, sc, s2c=None):
+        chunks.append((ids.shape[0], sc))
+        return layers(scene, config, ids, sample_idx, sc, s2c)
+
+    monkeypatch.setattr(scan_graph, "shade_scene", asking)
+    monkeypatch.setattr(render_mod, "_round_layers", chunk)
+    monkeypatch.setattr(mega, "surface_unsupported", lambda *a: tables.append(a))
+    renders = (
+        lambda: render_mod.render(scene, cfg, sample_count=2, device="cpu", mega=False),
+        lambda: render_adaptive(scene, cfg, sample_count=2, device="cpu"),
+        lambda: shard.render_sharded(scene, cfg, shard.make_mesh(devices=["cpu"]),
+                                     sample_count=2, mega=False))
+    for k, go in enumerate(renders):
+        go()
+        assert len(asked) == k + 1, k
+        assert len(chunks) == 6 * (k + 1), k  # two rounds of three chunks
+    assert {n for n, _ in chunks} == {n_pix // 3}
+    assert all(sc is None for _, sc in chunks) and not tables
 
 
-def test_a_table_that_comes_to_require_grad_takes_the_chain(scenes, monkeypatch):
+def test_a_table_that_comes_to_require_grad_takes_the_chain(scenes):
     """`train_step`'s parameters are the scene's tables detached with
     requires_grad set: the same storage, so the same cache key as the
     scene's, whose rounds took the kernel; they must take the chain."""
     scene, cfg = scenes["box"]
-    monkeypatch.setattr(scan_shade, "_cache", type(scan_shade._cache)())
-    assert scan_shade.prepare(scene, cfg, "cuda") is not None
+    assert scan_graph.shade_scene(scene, cfg, "cuda") is not None
     grad = _with(scene, "bsdfs", kd=scene.bsdfs.kd.detach().requires_grad_(True))
     assert scan_graph.cache_key(grad, cfg, "cuda") == scan_graph.cache_key(scene, cfg, "cuda")
-    assert scan_shade.prepare(grad, cfg, "cuda") is None
-    assert scan_shade.prepare(scene, cfg, "cuda") is not None
+    assert scan_graph.shade_scene(grad, cfg, "cuda") is None
+    assert scan_graph.shade_scene(scene, cfg, "cuda") is not None
 
 
 def test_a_cpu_round_runs_the_chain(scenes, monkeypatch):
@@ -322,7 +341,9 @@ def test_a_cpu_round_runs_the_chain(scenes, monkeypatch):
         raise AssertionError("a CPU round reached the shading kernel")
 
     monkeypatch.setattr(path_int, "li_path_fused", refuse)
-    pos, layers = render_mod._round_layers(scene, cfg, torch.arange(64), 0)
+    sc = scan_graph.shade_scene(scene, cfg, "cpu")
+    assert sc is None
+    pos, layers = render_mod._round_layers(scene, cfg, torch.arange(64), 0, sc)
     assert layers.shape == (3, 64, 3)
 
 
@@ -360,7 +381,7 @@ def test_the_kernel_gives_the_chains_layers_and_streams(card_scenes, name, integ
     sampler state of every lane alive after each bounce equal."""
     scene, cfg = card_scenes[name]
     cfg = dataclasses.replace(cfg, integrator=integrator, seed=4321)
-    assert scan_shade.prepare(scene, cfg, _card()) is not None
+    assert scan_graph.shade_scene(scene, cfg, _card()) is not None
     _hold(scene, cfg, scan_shade.shade, 1e-4)
 
 
@@ -373,21 +394,22 @@ def test_a_replayed_round_of_the_kernel_equals_its_eager_round(card_scenes, name
     scene, cfg = card_scenes[name]
     cfg = dataclasses.replace(cfg, integrator=integrator)
     dev = _card()
-    assert scan_shade.prepare(scene, cfg, dev) is not None
+    sc = scan_graph.shade_scene(scene, cfg, dev)
+    assert sc is not None
     ids = torch.arange(cfg.width * cfg.height, device=dev)
     s2c = camera_ops.sample_to_camera_matrix(scene.camera.to("cpu"), cfg.width,
                                              cfg.height).to(dev)
     scalar = torch.zeros((), dtype=torch.int64, device=dev)
-    render_mod._round_layers(scene, cfg, ids, 0)  # warm: load every kernel before the capture
+    render_mod._round_layers(scene, cfg, ids, 0, sc)  # warm: load every kernel before the capture
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph()
     with torch.cuda.graph(g):
         pos_g, layers_g = render_mod._round_layers(scene, dataclasses.replace(cfg, seed=0), ids,
-                                                   scalar, s2c)
+                                                   scalar, sc, s2c)
     for seed in (5, 2**31 - 7):
         for sample in (0, 2):
             pos, layers = render_mod._round_layers(scene, dataclasses.replace(cfg, seed=seed),
-                                                   ids, sample)
+                                                   ids, sample, sc)
             scalar.fill_(scan_graph.sample_scalar(sample, seed))
             g.replay()
             assert torch.equal(pos_g, pos) and torch.equal(layers_g, layers), (seed, sample)

@@ -139,9 +139,9 @@ def test_scan_path_lanes_equal_and_film_close(scan_pair):
     scene, cfg, ref = scan_pair
     mesh = _mesh(8)
     for si in range(2):
-        pos, layers = render_mod._round_layers(scene, cfg, torch.arange(384), si)
+        pos, layers = render_mod._round_layers(scene, cfg, torch.arange(384), si, None)
         for t, slab in enumerate(shard.tile_slabs(cfg, mesh)):
-            p, lay = render_mod._round_layers(scene, cfg, slab, si)
+            p, lay = render_mod._round_layers(scene, cfg, slab, si, None)
             assert torch.equal(p, pos[slab]) and torch.equal(lay, layers[:, slab]), (si, t)
     out = shard.render_sharded(scene, cfg, mesh, mega=False)
     assert out["spp_done"] == 2
