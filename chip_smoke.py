@@ -266,7 +266,17 @@ Drives the port's main path (`optix_renderer_tpu_torch`, no JAX) once:
    within 1e-4 x (|chain| + 1e-3) outside at most 0.1 % of lanes, and
    after each bounce the pcg32 state of every live lane equal; times the
    kernel (torch.profiler) and its plain version `shade_ref` (CUDA events)
-   per launch beside the kernel's bytes bound.
+   per launch beside the kernel's bytes bound;
+35. holds the scan path's filter splat (`csrc/film.cu: splat_kernel`,
+   through `render/film.py: splat_`) against its plain body
+   (`_splat_plain_`) on one real round of config A (gaussian) and config B
+   (mitchell) at 800x600, as `render.scan_step` chunks it: the films within the
+   tolerance of two orders of adds; times the kernel (torch.profiler) and
+   the plain body (CUDA events) per round beside the kernel's bytes bound (the
+   kernel by CUDA events where the profiler records none of its launches);
+   holds its adjoint (`splat_grad_kernel`, the backward of a card's `splat`)
+   against the plain body's autograd on a random film gradient and times it
+   (CUDA events) beside its bytes bound.
 
 Every scene a phase renders on the card is built there
 (`load_scene(..., device)`, the presets' `device=`).
@@ -1991,6 +2001,87 @@ def scan_shading(dev, smi: str, scene_a, cfg_a, scene_b, cfg_b) -> dict:
     return rec
 
 
+# ---- phase 35: the scan path's filter splat (csrc/film.cu)
+
+FILM_SOURCE = "optix_renderer_tpu_torch/csrc/film.cu"
+# bytes a splat must move: per lane its position (8 B) and three layer values
+# (36 B) read once, and the [3, H, W, 4] float32 film read and written once
+SPLAT_LANE_BYTES = 8 + 3 * 12
+SPLAT_PIXEL_BYTES = 2 * 3 * 16
+
+
+def film_splat(dev, smi: str, scene_a, cfg_a, scene_b, cfg_b) -> dict:
+    """Phase 35: `splat_kernel` against the plain body `_splat_plain_` on one
+    round of configs A (gaussian) and B (mitchell) as `render.scan_step`
+    chunks it (padding lanes included, where it pads); the kernel's time per launch
+    beside its bytes bound and the plain body's; its adjoint `splat_grad_kernel`
+    against the plain body's autograd on a random film gradient, and its time
+    beside its bound; returns the phase's record."""
+    from optix_renderer_tpu_torch.ops.cuda import film as film_kernel
+    from optix_renderer_tpu_torch.render import film as film_ops
+    from optix_renderer_tpu_torch.render import render as render_mod
+    from optix_renderer_tpu_torch.render import scan_graph
+
+    rec = {}
+    for name, scene, cfg in (("config_a", scene_a, cfg_a), ("config_b", scene_b, cfg_b)):
+        n_pix = cfg.width * cfg.height
+        pad = -n_pix % min(render_mod.MAX_LANES, n_pix)
+        ids = torch.cat([torch.arange(n_pix), torch.full((pad,), -4 * max(cfg.width, cfg.height))])
+        sc = scan_graph.shade_scene(scene, cfg, dev)
+        pos, layers = render_mod._round_layers(scene, cfg, ids.to(dev), 7, sc)
+        got = torch.zeros((3, cfg.height, cfg.width, 4), device=dev)
+        want = torch.zeros_like(got)
+        film_ops.splat_(got, cfg.rfilter, pos, layers)
+        film_ops._splat_plain_(want, cfg.rfilter, pos, layers)
+        # two orders of adds: tests/test_torch_scan_graph.py's _film_close, layer by layer
+        err = (got - want).abs()
+        scale = want.abs().amax(dim=(1, 2, 3), keepdim=True).clamp_min(1.0)
+        over = int((err > 1e-5 * want.abs() + 1e-6 * scale).sum())
+        if over or not float(want[0, ..., 3].min()) > 0:
+            raise AssertionError(f"{name}: the splat kernel's film is off the plain body's on "
+                                 f"{over} values")
+        acc = torch.zeros_like(got)
+        ev = kernel_events(lambda: film_ops.splat_(acc, cfg.rfilter, pos, layers), reps=5)
+        k_ms = sum(v[0] for k, v in ev.items() if "splat_kernel" in k)
+        k_n = sum(v[1] for k, v in ev.items() if "splat_kernel" in k)
+        # where the profiler records no launch (it can lose them late in a whole run), CUDA
+        # events around 20 back-to-back calls: the launches queue faster than they run
+        timed_by = "profiler" if k_n else "cuda events"
+        ms = k_ms / k_n if k_n else event_ms(
+            lambda: film_ops.splat_(acc, cfg.rfilter, pos, layers), 20)
+        n = pos.shape[0]
+        nbytes = n * SPLAT_LANE_BYTES + n_pix * SPLAT_PIXEL_BYTES
+        row = {"lanes": n, "rfilter": cfg.rfilter, "max_abs_err": float(err.max()),
+               "max_rel_err": float((err / (want.abs() + 1e-6 * scale)).max()),
+               "ms": ms, "timed_by": timed_by, "launches_per_call": round(k_n),
+               "plain_ms": event_ms(lambda: film_ops._splat_plain_(acc, cfg.rfilter, pos,
+                                                                   layers), 3),
+               "bytes": nbytes, "bound": bound(0, nbytes)}
+        # the adjoint (`splat`'s backward on a card) against the plain body's autograd
+        gfilm = torch.randn(got.shape, device=dev, generator=torch.Generator(dev).manual_seed(9))
+        g = film_kernel.splat_grad(gfilm, cfg.rfilter, pos)
+        lay = layers.detach().clone().requires_grad_(True)
+        plain = torch.zeros_like(got)
+        film_ops._splat_plain_(plain, cfg.rfilter, pos, lay)
+        (g_want,) = torch.autograd.grad((plain * gfilm).sum(), lay)
+        g_err = float((g - g_want).abs().max())
+        if g_err > 1e-5 * max(1.0, float(g_want.abs().max())):
+            raise AssertionError(f"{name}: the adjoint is off the plain gradient by {g_err}")
+        g_bytes = n * SPLAT_LANE_BYTES + n_pix * SPLAT_PIXEL_BYTES // 2  # the film read once
+        row["grad"] = {"max_abs_err": g_err, "bytes": g_bytes, "bound": bound(0, g_bytes),
+                       "ms": event_ms(lambda: film_kernel.splat_grad(gfilm, cfg.rfilter, pos), 20)}
+        rec[name] = row
+        print(f"  {name} {cfg.rfilter} round at {cfg.width}x{cfg.height} ({n} lanes): max |err| "
+              f"{row['max_abs_err']:.3e}; splat_kernel {ms:.4f} ms a launch ({timed_by}), "
+              f"plain body {row['plain_ms']:.3f} ms, bound {row['bound'][0]:.4f} ms; "
+              f"splat_grad_kernel {row['grad']['ms']:.4f} ms a call (cuda events, its zeros "
+              f"included), max |err| {g_err:.3e}, bound {row['grad']['bound'][0]:.4f} ms on {smi}",
+              flush=True)
+    phase(35, "the splat kernel's films equal the plain body's up to the order of adds on "
+              f"configs A and B at 800x600 (config A: {rec['config_a']['ms']:.4f} ms a launch)")
+    return rec
+
+
 def main() -> None:
     # ---- 1. the card
     if not torch.cuda.is_available():
@@ -2262,12 +2353,14 @@ def main() -> None:
     render(scene_a, cfg_a, sample_count=1, device=dev)  # warm-up
     tracing.reset_counters("launch.isect_")
     tracing.reset_counters("launch.scan_")
+    tracing.reset_counters("launch.film_")
     torch.cuda.synchronize()
     t0 = time.time()
     out_a = render(scene_a, cfg_a, sample_count=4, device=dev)  # returns host numpy
     dt_a = time.time() - t0
     launches_a = launches_of(ISECT_KERNELS)
     shade_launches_a = launches_of(SCAN_KERNELS)
+    splat_launches_a = tracing.counter("launch.film_splat")
     comp = out_a["composite"]
     print(f"  config A 800x600 path_mis depth 8 gaussian, 4 spp: {dt_a:.4f} s, "
           f"{800 * 600 * 4 / dt_a / 1e6:.4f} Mpaths/s on {smi}; launches {launches_a}; "
@@ -2278,6 +2371,9 @@ def main() -> None:
     if shade_launches_a != {"scan_shade": 4 * cfg_a.max_depth, "scan_fold": 4}:
         raise AssertionError(f"config A's 4 spp at depth {cfg_a.max_depth} did not take the "
                              f"shading kernel once a bounce: {shade_launches_a}")
+    if splat_launches_a != 4:  # one chunk of 2^19 lanes a round
+        raise AssertionError(f"config A's 4 spp took the splat kernel {splat_launches_a} times, "
+                             "not once a round")
     if not (np.isfinite(comp).all() and comp.shape == (600, 800, 3) and comp.mean() > 0):
         raise AssertionError("config A film is not finite / positive")
     scene_q, cfg_q, _ = make_tessellated_cornell(400, 300, 1, "path_mis", device=dev)
@@ -3434,6 +3530,8 @@ def main() -> None:
     lb = lbvh(dev, smi, reset_counts, read_counts, launches_a)
     shd = scan_shading(dev, smi, scene_a, cfg_a, scene_b, cfg_b)
     shd_a = shd["config_a_path_mis"]
+    spl = film_splat(dev, smi, scene_a, cfg_a, scene_b, cfg_b)
+    spl_a = spl["config_a"]
     wave_launches = {k: v["launches"] for k, v in wave["bit_equal"].items()}
     wave_iters = {k: v["iterations"] for k, v in wave["bit_equal"].items()}
     kp = shard_rec["kernel_path"]
@@ -3595,6 +3693,14 @@ def main() -> None:
             shape="config A's 480,000 camera rays, depth 8, per launch (folds included)",
             launches_shade=shade_launches_a["scan_shade"],
             launches_fold=shade_launches_a["scan_fold"], runs=shd),
+        row("film_splat", FILM_SOURCE, "optix_renderer_tpu/render/film.py: splat (an XLA "
+            "scatter, .at[].add)", splat_launches_a, spl_a["max_abs_err"], spl_a["ms"],
+            spl_a["plain_ms"], spl_a["bound"],
+            no_pallas_counterpart="the JAX package splats with XLA's scatter",
+            kernel="splat_kernel<F> (one thread per lane, float4 atomic adds)",
+            shape="config A's round at 800x600: one chunk of 480,000 lanes, gaussian, "
+                  "per launch",
+            runs=spl),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

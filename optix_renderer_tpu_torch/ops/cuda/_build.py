@@ -24,7 +24,7 @@ PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = ("mega.cuh", "walk.cuh", "pathk.cu", "isect.cu", "probes.cu", "track.cu", "lbvh.cu",
-           "scan.cu")
+           "scan.cu", "film.cu")
 UNITS = tuple(name for name in SOURCES if name.endswith(".cu"))
 # no --use_fast_math: the samplers go through logf/sinf/cosf and must keep
 # full-precision results to track the plain version per pixel.
@@ -198,6 +198,13 @@ def load() -> ctypes.CDLL:
             vp,  # stream
         ]
         lib.scan_shade_launch.restype = i
+        lib.film_splat_launch.argtypes = [
+            vp, vp, vp, vp,  # img [k, h, w, 4], pos [n, 2], layers [k, n, 3], mask [n] (or null)
+            i, i, i, i, i,  # k, h, w, n, filter (ops/cuda/film.py: FILTER_CODE)
+            i,  # grad: 0 the splat, 1 its adjoint
+            vp,  # stream
+        ]
+        lib.film_splat_launch.restype = i
         lib.pathk_error_string.argtypes = [i]
         lib.pathk_error_string.restype = ctypes.c_char_p
         _lib = lib

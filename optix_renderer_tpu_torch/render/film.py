@@ -4,11 +4,13 @@ Counterpart of `optix_renderer_tpu/render/film.py` (reference ImageBlock +
 ReconstructionFilter, block.h:49-129, rfilter.cpp:28-210): each sample at a
 continuous position adds into its filter-support neighbourhood; channel 3
 accumulates the filter weight; `to_bitmap` divides it out. `.at[].add`
-becomes `index_put_(..., accumulate=True)` (into `render()`'s accumulator
-in `splat_`, into a fresh zero film in `splat`, which autograd follows),
-which on a GPU adds colliding samples in an order that
-varies from run to run, so a film there differs from run to run in its last
-bits.
+becomes, on a CUDA film, one launch of `csrc/film.cu: splat_kernel`
+(`ops/cuda/film.py`), whose float4 atomic adds land in an order that varies
+from run to run, so a film there differs from run to run in its last bits;
+where autograd follows a card's `splat`, its backward is one launch of the
+kernel's adjoint, `splat_grad_kernel`. On the CPU the plain body
+`_splat_plain_` splats, one `index_put_(..., accumulate=True)` a filter
+tap, and autograd follows it: the kernels' contract.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from optix_renderer_tpu_torch.ops.cuda import film as film_kernel
 
 # filter radii per type (rfilter.cpp defaults)
 FILTER_RADIUS = {"gaussian": 2.0, "mitchell": 2.0, "tent": 1.0, "box": 0.5}
@@ -79,7 +83,22 @@ def splat_(img: torch.Tensor, rfilter: str, pos: torch.Tensor, layers: torch.Ten
     keeps its in-bounds position, as in the JAX `film.splat` (film.py:59-85),
     so the masked lanes of `render/wavefront.py` (most of each iteration's)
     do not all add into one pixel.
+
+    A CUDA film takes one launch of the kernel, which raises where `pos` or
+    `layers` requires grad (autograd follows `splat`); a CPU film the plain
+    body `_splat_plain_`.
     """
+    if img.is_cuda:
+        film_kernel.splat(img, rfilter, pos, layers, mask)
+    else:
+        _splat_plain_(img, rfilter, pos, layers, mask)
+
+
+def _splat_plain_(img: torch.Tensor, rfilter: str, pos: torch.Tensor, layers: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> None:
+    """`splat_` in plain torch, one accumulating `index_put_` a filter tap:
+    the CPU's splat, which autograd follows (through `splat`), and the
+    kernels' contract."""
     k, height, width, _ = img.shape
     radius = FILTER_RADIUS[rfilter]
     support = _support(rfilter)
@@ -106,14 +125,42 @@ def splat_(img: torch.Tensor, rfilter: str, pos: torch.Tensor, layers: torch.Ten
 
 def splat(width: int, height: int, rfilter: str, pos: torch.Tensor,
           layers: torch.Tensor) -> torch.Tensor:
-    """`splat_` into a fresh zero film → [K,H,W,4] (the JAX `film.splat`).
-    Autograd follows the accumulating `index_put_` back to `layers` (and,
-    through the filter weights, `pos`): its backward gathers the film's
-    gradient at the indices and saves no copy of the film."""
+    """`splat_` into a fresh zero film → [K,H,W,4] (the JAX `film.splat`),
+    differentiable with respect to `layers`. On the CPU autograd follows the
+    plain body's accumulating `index_put_` (and, through the filter weights,
+    `pos`); on a card `_CardSplat`, whose backward gathers the film's
+    gradient at each lane's taps in one launch, and which refuses a `pos`
+    that requires grad: no caller's positions carry a gradient."""
+    if layers.is_cuda:
+        if pos.requires_grad:
+            raise ValueError("a card's splat takes no gradient to pos: detach it")
+        return _CardSplat.apply(width, height, rfilter, pos, layers)
     img = torch.zeros((layers.shape[0], height, width, 4), dtype=torch.float32,
                       device=layers.device)
-    splat_(img, rfilter, pos, layers)
+    _splat_plain_(img, rfilter, pos, layers)
     return img
+
+
+class _CardSplat(torch.autograd.Function):
+    """`splat` on a card: forward one launch of `splat_kernel` into a fresh
+    film, backward one of its adjoint, `splat_grad_kernel` (the `layers`
+    gradient, linear in the film's; the plain body's backward is the same
+    gather, tap by tap)."""
+
+    @staticmethod
+    def forward(ctx, width, height, rfilter, pos, layers):
+        img = torch.zeros((layers.shape[0], height, width, 4), dtype=torch.float32,
+                          device=layers.device)
+        film_kernel.splat(img, rfilter, pos, layers.detach())
+        ctx.save_for_backward(pos)
+        ctx.rfilter = rfilter
+        return img
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        (pos,) = ctx.saved_tensors
+        return None, None, None, None, film_kernel.splat_grad(grad, ctx.rfilter, pos)
 
 
 def to_bitmap(img: torch.Tensor) -> torch.Tensor:

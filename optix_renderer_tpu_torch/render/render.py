@@ -170,13 +170,15 @@ def render_round_accumulate(acc, scene: SceneData, config: RenderConfig, pixel_i
     """One sample round for `pixel_ids` [N] int64 (negative ids are padding
     lanes, outside the image), splatted into `acc` [3,H,W,4] in place, in
     chunks of up to `MAX_LANES` lanes; `sample_idx` (a per-lane one sliced
-    with the ids), `sc` and `s2c` as in `_round_layers`."""
+    with the ids), `sc` and `s2c` as in `_round_layers`. The film carries no
+    gradient (`render_round` is the differentiable round), so a scene whose
+    tensors require grad splats its layers detached."""
     per_lane = isinstance(sample_idx, torch.Tensor) and sample_idx.dim() > 0
     for c in range(0, pixel_ids.shape[0], MAX_LANES):
         si = sample_idx[c:c + MAX_LANES] if per_lane else sample_idx
         pos, layers = _round_layers(scene, config, pixel_ids[c:c + MAX_LANES], si, sc, s2c)
         with tracing.span("scan.splat"):
-            film.splat_(acc, config.rfilter, pos, layers)
+            film.splat_(acc, config.rfilter, pos, layers.detach())
 
 
 def scan_step(scene: SceneData, config: RenderConfig, device: torch.device):

@@ -7,7 +7,8 @@ scene none of whose tensors requires grad (`graphable`), `graph_step` renders
 the round through the same code, captured once into a `torch.cuda.CUDAGraph`
 and replayed for every later sample: one graph launch a sample. Every other
 round runs that code eagerly (`eager_step`). `shade_scene` is the one rule
-for the rounds whose bounces take the shading kernel of `csrc/scan.cu`.
+for the rounds whose bounces take the shading kernel of `csrc/scan.cu`; a
+round on a CUDA device splats in `csrc/film.cu` (`render/film.py: splat_`).
 
 What a replay bakes in, and how it is fed:
 
@@ -31,6 +32,7 @@ every kernel the capture then records. A capture that fails raises.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import threading
 
@@ -108,15 +110,22 @@ def sample_scalar(sample: int, seed: int) -> int:
     return (sample & M32) ^ (seed & M32)
 
 
-def count_round(graphed: bool, fused: bool) -> None:
-    """Count one sample round of `scan_step` in a traced request: in
-    `scan.rounds`, in `scan.rounds_graphed` if it was replayed, and in
-    `scan.rounds_fused` 1 if it took the shading kernel, else 0."""
+@contextlib.contextmanager
+def counted_round(graphed: bool, fused: bool):
+    """Count the sample round of `scan_step` run within it, in a traced
+    request: in `scan.rounds`, in `scan.rounds_graphed` if it was replayed,
+    in `scan.rounds_fused` 1 if it took the shading kernel, else 0, and in
+    `scan.rounds_splatted` 1 if it launched `csrc/film.cu`'s splat kernel
+    (`launch.film_splat` moved, a replay's launches included), else 0."""
+    splats = tracing.counter("launch.film_splat")
+    yield
     if tracing.recording():
         tracing.count("scan.rounds")
         if graphed:
             tracing.count("scan.rounds_graphed")
         tracing.count("scan.rounds_fused", int(fused))
+        tracing.count("scan.rounds_splatted",
+                      int(tracing.counter("launch.film_splat") > splats))
 
 
 @dataclasses.dataclass
@@ -138,9 +147,9 @@ class _Round:
         for s in range(spp0, spp0 + n):
             with tracing.span("scan.round"):
                 self.sample.fill_(sample_scalar(s, seed))
-                self.graph.replay()
-                tracing.replayed(self.counted)
-                count_round(graphed=True, fused=self.sc is not None)
+                with counted_round(graphed=True, fused=self.sc is not None):
+                    self.graph.replay()
+                    tracing.replayed(self.counted)
         acc.copy_(self.film)
 
 
@@ -167,8 +176,8 @@ def eager_step(scene: SceneData, config: RenderConfig, ids: torch.Tensor, rounds
 
     def step(acc: torch.Tensor, spp0: int, n: int) -> None:
         for s in range(spp0, spp0 + n):
-            count_round(graphed=False, fused=sc is not None)
-            rounds(acc, s, config, sc, None)
+            with counted_round(graphed=False, fused=sc is not None):
+                rounds(acc, s, config, sc, None)
 
     return step
 
@@ -185,8 +194,8 @@ def graph_step(scene: SceneData, config: RenderConfig, ids: torch.Tensor, rounds
             entry = _cache.get(key)
             if entry is None:
                 sc = shade_scene(scene, config, ids.device)
-                count_round(graphed=False, fused=sc is not None)
-                rounds(acc, spp0, config, sc, None)
+                with counted_round(graphed=False, fused=sc is not None):
+                    rounds(acc, spp0, config, sc, None)
                 spp0, n = spp0 + 1, n - 1
                 entry = _cache[key] = _capture(scene, config, ids, rounds, acc, sc)
                 while len(_cache) > CACHE_SIZE:

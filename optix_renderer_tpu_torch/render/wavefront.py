@@ -130,9 +130,9 @@ def wavefront_iter(acc: torch.Tensor, state: PathState, scene: SceneData, config
     was_active = state.path.active
     state = _bounce(state, scene, config)
     p = state.path
-    # a dead lane's NaN / Inf must not poison the film
+    # a dead lane's NaN / Inf must not poison the film, which carries no gradient
     L = torch.nan_to_num(p.L, nan=0.0, posinf=0.0, neginf=0.0)
-    film.splat_(acc, config.rfilter, state.pos, torch.stack([L, p.albedo, p.normal]),
+    film.splat_(acc, config.rfilter, state.pos, torch.stack([L, p.albedo, p.normal]).detach(),
                 mask=was_active & ~p.active)
     return state, p.active.sum()
 
